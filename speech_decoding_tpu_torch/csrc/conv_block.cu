@@ -30,9 +30,10 @@
 //     fragments are read in place from the activation buffers; each
 //     accumulator goes through a small per-warp f32 scratch for the epilogue.
 //     Needs D2 % 16 == 0 and conv0's weights zero-padded to a multiple of 16
-//     input channels (the wrapper pads). Measured at ~0.9 ms per block at
-//     B=64, ~16x its bound: neither a deeper ring nor 16 warps per block
-//     helped, so the next step is wgmma with TMA, not more of this tiling.
+//     input channels (prepare_fused_stack pads them once). Measured at
+//     ~0.9 ms per block at B=64, ~16x its bound: neither a deeper ring nor
+//     16 warps per block helped, so the next step is wgmma with TMA, not
+//     more of this tiling.
 //   * f32: a CUDA-core version (f32 FMA, 4x4 register tile per thread,
 //     weights staged through shared memory in 32 x 128 chunks).
 //

@@ -13,7 +13,7 @@ Port of ``speech_decoding_tpu/inference.py``:
 The default encode on the card is the fused serving path: SubjectBlock
 (per-subject matmul kernel) -> five fused ConvBlock kernels -> two 1x1 GELU
 heads. ``use_fused_blocks=False`` runs the module forward instead (which
-still takes the per-subject kernel when the encoder's ``use_kernels`` is on).
+takes the same per-subject kernel).
 The bank lives on the device. ``bank_from_audio``, ``from_checkpoint`` and
 a sharded bank wait for the wav2vec2, checkpoint and parallel parts of the
 port.
@@ -167,11 +167,9 @@ class SpeechDecoder:
         (B, T, C) -> (B, T, F) for a channels-last encoder)."""
         if isinstance(subject_idxs, torch.Tensor):
             subject_idxs = subject_idxs.cpu()
-        ids = np.asarray(subject_idxs, np.int32)
-        if ids.size and (ids.min() < 0 or ids.max() >= self.encoder.num_subjects):
-            raise ValueError(f"subject ids must lie in [0, {self.encoder.num_subjects}), got [{ids.min()}, {ids.max()}]")
+        # host ids: the per-subject kernel's wrapper checks them on the host
+        sidx = torch.from_numpy(np.asarray(subject_idxs, np.int32))
         X = torch.as_tensor(X).to(self.device, torch.float32)
-        sidx = torch.as_tensor(ids).to(self.device)
         if self.use_fused_blocks:
             return self._encode_fused(X, sidx)
         return self.encoder(X, sidx)

@@ -12,8 +12,8 @@ flax modules, so ``models.params_bridge`` moves weights across unchanged:
     ``channels_last_io``;
   * parameters are f32, compute runs in ``compute_dtype``; BatchNorm
     normalizes in the compute dtype from f32 running statistics;
-  * the per-subject layer goes through ``ops.subject_conv.subject_matmul``
-    (the hand-written kernel on the card) when ``use_kernels``;
+  * the per-subject layer goes through ``ops.subject_conv.subject_matmul``,
+    the hand-written kernel for CUDA tensors (its plain version on the CPU);
   * GELU is exact (erf); initializers match torch defaults
     (U(±1/sqrt(fan_in)) for conv weights and biases, U(0, 1) for z), drawn
     from the caller's ``torch.Generator``.
@@ -33,7 +33,7 @@ from torch import nn
 from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.ops.conv_block import dilations
-from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain
+from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
 
 
 def _uniform(shape, bound: float, generator, low: Optional[float] = None) -> nn.Parameter:
@@ -136,10 +136,9 @@ class SubjectBlock(nn.Module):
     [ref: models.py:89-117]. ``subject_kernel`` is (S, D1_in, D1_out)."""
 
     def __init__(self, num_subjects: int, D1: int, K: int, loc: np.ndarray,
-                 compute_dtype=torch.float32, use_kernels: bool = True, generator=None):
+                 compute_dtype=torch.float32, generator=None):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.use_kernels = use_kernels
         self.spatial_attention = SpatialAttention(D1, K, loc, compute_dtype, generator)
         self.conv = Conv1d(D1, D1, 1, compute_dtype=compute_dtype, generator=generator)
         self.subject_kernel = _uniform((num_subjects, D1, D1), 1.0 / math.sqrt(D1), generator)
@@ -147,9 +146,7 @@ class SubjectBlock(nn.Module):
     def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor) -> torch.Tensor:
         X = self.conv(self.spatial_attention(X))
         W = self.subject_kernel.to(self.compute_dtype)
-        if self.use_kernels:
-            return subject_matmul(X.contiguous(), W.contiguous(), subject_idxs)
-        return subject_matmul_plain(X, W, subject_idxs)
+        return subject_matmul(X.contiguous(), W.contiguous(), subject_idxs)
 
 
 class ConvBlock(nn.Module):
@@ -185,7 +182,7 @@ class BrainEncoder(nn.Module):
     -> Z (B, F, T); with ``channels_last_io`` X (B, T, C) -> Z (B, T, F)."""
 
     def __init__(self, num_subjects: int, loc: np.ndarray, D1: int = 270, D2: int = 320,
-                 F: int = 1024, K: int = 32, compute_dtype=torch.float32, use_kernels: bool = True,
+                 F: int = 1024, K: int = 32, compute_dtype=torch.float32,
                  channels_last_io: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_subjects, self.D1, self.D2, self.F, self.K = num_subjects, D1, D2, F, K
@@ -193,7 +190,7 @@ class BrainEncoder(nn.Module):
         self.compute_dtype = compute_dtype
         self.channels_last_io = channels_last_io
         dt = compute_dtype
-        self.subject_block = SubjectBlock(num_subjects, D1, K, self.loc, dt, use_kernels, generator)
+        self.subject_block = SubjectBlock(num_subjects, D1, K, self.loc, dt, generator)
         for k in range(5):
             setattr(self, f"conv{k}", ConvBlock(k, D1 if k == 0 else D2, D2, dt, generator))
         self.conv_final1 = Conv1d(D2, 2 * D2, 1, compute_dtype=dt, generator=generator)
@@ -205,13 +202,14 @@ class BrainEncoder(nn.Module):
 
     @classmethod
     def from_config(cls, args, loc, num_subjects: int, generator=None) -> "BrainEncoder":
+        """Encoder of a config. ``tpu.use_pallas`` is not read: it picks the
+        JAX package's TPU kernels, while the port's kernel wrappers follow the
+        device of their tensors."""
         F = 1024 if args.preprocs["last4layers"] else args.F  # [ref: models.py:176]
         dtype = getattr(torch, str(args.select("tpu.compute_dtype", "float32")))
-        use_kernels = args.select("tpu.use_pallas", None)
         return cls(
             num_subjects=num_subjects, loc=loc, D1=args.D1, D2=args.D2, F=F, K=args.K,
             compute_dtype=dtype,
-            use_kernels=True if use_kernels is None else bool(use_kernels),
             channels_last_io=bool(args.select("tpu.channels_last_io", False)),
             generator=generator,
         )

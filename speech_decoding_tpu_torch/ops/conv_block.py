@@ -9,7 +9,8 @@ local compute; the CUDA kernel (``csrc/conv_block.cu``) runs it in one launch
 per block, with the intermediates in shared memory (see the source for the
 halo-recompute design), so the only device-memory traffic is the block's
 input, its output and its weights. bf16 runs on the tensor cores (and needs
-D2 % 16 == 0), f32 on the CUDA cores.
+D2 % 16 == 0), f32 on the CUDA cores. ``prepare_fused_stack`` stages the
+weights once in the layout the kernel reads (``stage_weight``).
 
 ``conv_block_fused`` launches the kernel for CUDA tensors and uses
 ``conv_block_plain`` — a step-by-step copy of the Pallas ``_block_kernel``,
@@ -60,10 +61,12 @@ def _conv3(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
 def conv_block_plain(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
     """Reference for the kernel: the Pallas ``_block_kernel`` step by step.
     x (B, T, Cin) -> (B, T, D2) in x's dtype; the conv outputs, bias, skip and
-    BN affine are f32, y0 and y1 are cast to x's dtype before the next conv."""
+    BN affine are f32, y0 and y1 are cast to x's dtype before the next conv.
+    Input channels of w0 beyond Cin (the zero depth padding of a staged bf16
+    w0) are not read."""
     d0, d1 = dilations(k)
     dt = x.dtype
-    y = _conv3(x, w0, d0) + b0
+    y = _conv3(x, w0[:, : x.shape[-1]], d0) + b0
     if k > 0:
         y = y + x.float()
     y = _gelu_exact_f32(y * a0[0] + a0[1]).to(dt)
@@ -74,34 +77,48 @@ def conv_block_plain(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
     return (y2[..., :D2] * torch.sigmoid(y2[..., D2:])).to(dt)
 
 
+def conv0_depth(cin: int, dtype: torch.dtype) -> int:
+    """Input channels of the staged conv0 weight: the bf16 kernel works in
+    16-channel fragments, so there the depth is zero-padded to a multiple of 16."""
+    return cin + (-cin % 16) if dtype == torch.bfloat16 else cin
+
+
+def stage_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A (3, Cin, Cout) conv weight as the kernel reads it: cast to ``dtype``
+    and zero-padded to ``conv0_depth`` input channels, in a buffer of its own
+    (so 16-byte aligned for the kernel's vector copies)."""
+    taps, cin, cout = w.shape
+    out = torch.zeros((taps, conv0_depth(cin, dtype), cout), dtype=dtype, device=w.device)
+    out[:, :cin] = w
+    return out
+
+
 def _launch(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
     B, T, Cin = x.shape
     D2 = w1.shape[-1]
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv_block_fused takes float32 or bfloat16 x, got {x.dtype}")
+    if x.dtype == torch.bfloat16 and D2 % 16:
+        # the tensor-core path works in 16-channel fragments
+        raise ValueError(f"the bf16 kernel needs D2 % 16 == 0, got D2={D2}")
     expect = [
-        (w0, (3, Cin, D2), x.dtype), (b0, (D2,), torch.float32), (a0, (2, D2), torch.float32),
+        (w0, (3, conv0_depth(Cin, x.dtype), D2), x.dtype), (b0, (D2,), torch.float32), (a0, (2, D2), torch.float32),
         (w1, (3, D2, D2), x.dtype), (b1, (D2,), torch.float32), (a1, (2, D2), torch.float32),
         (w2, (3, D2, 2 * D2), x.dtype), (b2, (2 * D2,), torch.float32),
     ]
     for i, (t, shape, dtype) in enumerate(expect):
         if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"conv_block_fused argument {i + 1}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+            raise ValueError(f"conv_block_fused argument {i + 1}: expected {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype} (stage the weights with prepare_fused_stack)")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"conv_block_fused argument {i + 1} must be contiguous on {x.device}")
+        if x.dtype == torch.bfloat16 and t.dim() == 3 and t.data_ptr() % 16:
+            # weights are copied in 16-byte pieces
+            raise ValueError(f"conv_block_fused argument {i + 1} must start 16-byte aligned")
     if not x.is_contiguous():
         raise ValueError("conv_block_fused takes a contiguous x")
     if k > 0 and Cin != D2:
         raise ValueError(f"block k={k} has a skip around conv0, so Cin must equal D2 ({Cin} != {D2})")
-    if x.dtype == torch.bfloat16:
-        # the tensor-core path works in 16-channel fragments: D2 must divide,
-        # conv0's depth is zero-padded to the next multiple of 16
-        if D2 % 16:
-            raise ValueError(f"the bf16 kernel needs D2 % 16 == 0, got D2={D2}")
-        if Cin % 16:
-            w0 = torch.nn.functional.pad(w0, (0, 0, 0, -Cin % 16))
-        # weights are copied in 16-byte pieces: realign a tensor that starts mid-allocation
-        w0, w1, w2 = (w.clone() if w.data_ptr() % 16 else w for w in (w0, w1, w2))
     if x.data_ptr() % 16:  # the x window is read with 16-byte loads where the width allows
         x = x.clone()
     out = torch.empty((B, T, D2), dtype=x.dtype, device=x.device)
@@ -122,8 +139,9 @@ def _launch(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
 
 def conv_block_fused(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
     """Eval-mode ConvBlock k: x (B, T, Cin) -> (B, T, D2). Weights (3, Cin,
-    D2), (3, D2, D2), (3, D2, 2·D2) in x's dtype; biases and the folded BN
-    affines a0/a1 (2, D2) in f32."""
+    D2), (3, D2, D2), (3, D2, 2·D2) in x's dtype, as ``stage_weight`` lays
+    them out (in bf16, w0's depth padded to a multiple of 16); biases and the
+    folded BN affines a0/a1 (2, D2) in f32."""
     if x.is_cuda:
         return _launch(x, w0, b0, a0, w1, b1, a1, w2, b2, k)
     if x.device.type != "cpu":
@@ -142,18 +160,19 @@ def fold_bn(scale, bias, mean, var, eps: float = 1e-5) -> torch.Tensor:
 
 def prepare_fused_stack(blocks: Sequence, dtype: torch.dtype) -> List[Staged]:
     """Fold the BN statistics and stage each block's weights once (weights in
-    ``dtype``, biases and affines in f32, all contiguous on the blocks'
-    device). ``blocks`` are the encoder's five ``ConvBlock`` modules."""
+    ``dtype`` through ``stage_weight``, biases and affines in f32, all
+    contiguous on the blocks' device). ``blocks`` are the encoder's five
+    ``ConvBlock`` modules."""
     staged = []
     with torch.no_grad():
         for blk in blocks:
             bn0, bn1 = blk.batchnorm0, blk.batchnorm1
             staged.append((
-                blk.conv0.kernel.to(dtype).contiguous(), blk.conv0.bias.float().contiguous(),
+                stage_weight(blk.conv0.kernel, dtype), blk.conv0.bias.float().contiguous(),
                 fold_bn(bn0.scale, bn0.bias, bn0.mean, bn0.var, bn0.eps).contiguous(),
-                blk.conv1.kernel.to(dtype).contiguous(), blk.conv1.bias.float().contiguous(),
+                stage_weight(blk.conv1.kernel, dtype), blk.conv1.bias.float().contiguous(),
                 fold_bn(bn1.scale, bn1.bias, bn1.mean, bn1.var, bn1.eps).contiguous(),
-                blk.conv2.kernel.to(dtype).contiguous(), blk.conv2.bias.float().contiguous(),
+                stage_weight(blk.conv2.kernel, dtype), blk.conv2.bias.float().contiguous(),
             ))
     return staged
 

@@ -10,6 +10,9 @@ comes with the training path.
 
 ``subject_matmul`` launches the kernel for CUDA tensors and uses
 ``subject_matmul_plain`` for CPU tensors; it never falls back on the card.
+Subject ids may lie on the host: they are checked there and copied over with
+the launch, so the host does not wait for the card (the serving encode passes
+them so).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ def subject_matmul_plain(x: torch.Tensor, w: torch.Tensor, subject_idxs: torch.T
 
 def _check_ids(subject_idxs: torch.Tensor, num_subjects: int) -> None:
     # the Pallas index map would read out of bounds silently; raise instead
-    # (one host sync when the ids live on the card)
+    # (ids on the card cost one wait for the card, host ids none)
     if subject_idxs.numel() and bool(((subject_idxs < 0) | (subject_idxs >= num_subjects)).any()):
         raise ValueError(
             f"subject ids must lie in [0, {num_subjects}), got "
@@ -69,14 +72,15 @@ def _launch(x: torch.Tensor, w: torch.Tensor, sidx: torch.Tensor) -> torch.Tenso
 
 def subject_matmul(x: torch.Tensor, w: torch.Tensor, subject_idxs: torch.Tensor) -> torch.Tensor:
     """out[b] = x[b] @ w[subject_idxs[b]]: x (B, T, Din), w (S, Din, Dout),
-    subject_idxs (B,). Raises ValueError for an id outside [0, S)."""
+    subject_idxs (B,), on x's device or on the host. Raises ValueError for an
+    id outside [0, S)."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[2] != w.shape[1]:
         raise ValueError(f"subject_matmul shapes: x (B, T, Din), w (S, Din, Dout); got {tuple(x.shape)}, {tuple(w.shape)}")
     if subject_idxs.shape != (x.shape[0],):
         raise ValueError(f"subject_idxs must be ({x.shape[0]},), got {tuple(subject_idxs.shape)}")
     _check_ids(subject_idxs, w.shape[0])
     if x.is_cuda:
-        return _launch(x, w, subject_idxs)
+        return _launch(x, w, subject_idxs.to(x.device, non_blocking=True))
     if x.device.type != "cpu":
         raise ValueError(f"subject_matmul runs on CUDA or CPU tensors, got {x.device}")
     return subject_matmul_plain(x, w, subject_idxs)

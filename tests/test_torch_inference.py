@@ -150,8 +150,9 @@ def test_retrieval_ops_match_jax():
     np.testing.assert_allclose(s8.numpy(), np.asarray(js8), rtol=1e-6, atol=1e-7)
 
 
-def test_subject_id_out_of_range_raises(model):
-    td = _port_decoder(model, True)
+@pytest.mark.parametrize("fused", [True, False])
+def test_subject_id_out_of_range_raises(model, fused):
+    td = _port_decoder(model, fused)
     X, _ = _batch(5)
     with pytest.raises(ValueError, match="subject ids"):
         td.encode(X, np.array([0, 1, S, 0], np.int32))

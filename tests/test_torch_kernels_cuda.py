@@ -67,9 +67,9 @@ def _staged(dev, cin, d2, dtype, seed):
     r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
     aff = lambda: torch.stack([0.5 + torch.rand(d2, device=dev, generator=g), 0.1 * r(d2)])  # noqa: E731
     return (
-        (r(3, cin, d2) / (3 * cin) ** 0.5).to(dtype), 0.1 * r(d2), aff(),
-        (r(3, d2, d2) / (3 * d2) ** 0.5).to(dtype), 0.1 * r(d2), aff(),
-        (r(3, d2, 2 * d2) / (3 * d2) ** 0.5).to(dtype), 0.1 * r(2 * d2),
+        tcb.stage_weight(r(3, cin, d2) / (3 * cin) ** 0.5, dtype), 0.1 * r(d2), aff(),
+        tcb.stage_weight(r(3, d2, d2) / (3 * d2) ** 0.5, dtype), 0.1 * r(d2), aff(),
+        tcb.stage_weight(r(3, d2, 2 * d2) / (3 * d2) ** 0.5, dtype), 0.1 * r(2 * d2),
     )
 
 
@@ -105,6 +105,16 @@ def test_conv_block_kernel_rejects(dev):
            for a in _staged(dev, 24, 24, torch.float32, seed=0)]
     with pytest.raises(ValueError, match="D2 % 16"):
         tcb.conv_block_fused(torch.zeros(2, 8, 24, device=dev, dtype=torch.bfloat16), *odd, k=0)
+    # bf16 weights must come staged: conv0's depth padded to 16, 16-byte aligned
+    raw = [a.bfloat16() if a.dim() == 3 else a for a in _staged(dev, 24, 16, torch.float32, seed=0)]
+    x16 = torch.zeros(2, 8, 24, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="argument 1"):
+        tcb.conv_block_fused(x16, *raw, k=0)
+    staged = list(_staged(dev, 24, 16, torch.bfloat16, seed=0))
+    w0 = staged[0]
+    staged[0] = torch.zeros(w0.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(w0.shape).copy_(w0)
+    with pytest.raises(ValueError, match="aligned"):
+        tcb.conv_block_fused(x16, *staged, k=0)
 
 
 def test_subject_matmul_kernel_realigns_views(dev):
@@ -117,3 +127,17 @@ def test_subject_matmul_kernel_realigns_views(dev):
     w = torch.randn(3, 24, 40, device=dev, generator=g).to(torch.bfloat16)
     ids = torch.tensor([2, 0, 1, 2], dtype=torch.int32, device=dev)
     _close(subject_matmul(x, w, ids), subject_matmul_plain(x, w, ids), torch.bfloat16)
+
+
+def test_subject_matmul_kernel_takes_host_ids(dev):
+    """Host ids are checked on the host and copied over with the launch."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(4, 9, 24, device=dev, generator=g)
+    w = torch.randn(3, 24, 40, device=dev, generator=g)
+    ids = torch.tensor([2, 0, 1, 2], dtype=torch.int32)
+    before = subject_matmul.launches
+    got = subject_matmul(x, w, ids)
+    assert subject_matmul.launches == before + 1
+    _close(got, subject_matmul_plain(x, w, ids.to(dev)), torch.float32)
+    with pytest.raises(ValueError, match="subject ids"):
+        subject_matmul(x, w, ids + 1)

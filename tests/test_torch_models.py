@@ -62,17 +62,6 @@ def test_encoder_eval_matches_flax(flax_model, channels_last):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
 
 
-def test_module_path_without_kernel_flag_matches(flax_model):
-    """use_kernels=False (plain einsum) computes the same function."""
-    loc, params, stats = flax_model
-    X, ids = _inputs(1)
-    a = load_flax(BrainEncoder(loc=loc, **KW), params, stats).eval()
-    b = load_flax(BrainEncoder(loc=loc, use_kernels=False, **KW), params, stats).eval()
-    with torch.no_grad():
-        np.testing.assert_array_equal(a(torch.from_numpy(X), torch.from_numpy(ids)).numpy(),
-                                      b(torch.from_numpy(X), torch.from_numpy(ids)).numpy())
-
-
 def test_bridge_round_trip(flax_model):
     loc, params, stats = flax_model
     tenc = load_flax(BrainEncoder(loc=loc, **KW), params, stats)
@@ -166,7 +155,8 @@ def test_from_config():
     loc = t_ch_locations_2d("Gwilliams2022", cache=False)
     enc = BrainEncoder.from_config(cfg, loc, num_subjects=S)
     assert enc.F == 1024  # preprocs.last4layers forces F=1024 [ref: models.py:176]
-    assert enc.compute_dtype == torch.float32 and enc.subject_block.use_kernels
+    assert enc.compute_dtype == torch.float32
+    # tpu.use_pallas picks the JAX package's TPU kernels; the port does not read it
     cfg = load_config(None, ["preprocs.last4layers=false", "F=24", "tpu.use_pallas=false"])
     enc = BrainEncoder.from_config(cfg, loc, num_subjects=S)
-    assert enc.F == 24 and enc.compute_dtype == torch.bfloat16 and not enc.subject_block.use_kernels
+    assert enc.F == 24 and enc.compute_dtype == torch.bfloat16

@@ -96,6 +96,21 @@ class TestConvBlock:
         got = tcb.fold_bn(_t(p["scale"]), _t(p["bias"]), _t(st["mean"]), _t(st["var"]))
         np.testing.assert_array_equal(got.numpy(), jcb.fold_bn(p, st))
 
+    @pytest.mark.parametrize("cin", [16, 24])
+    def test_staged_bf16_conv0_is_depth_padded(self, cin):
+        """bf16 staging zero-pads conv0's depth to a multiple of 16 once; the
+        wrapper's plain version reads only the first Cin rows."""
+        rng = np.random.default_rng(4)
+        args = [_t(a) for a in _block_args(rng, 0, cin, D)]
+        w0 = tcb.stage_weight(args[0], torch.bfloat16)
+        assert w0.shape == (3, tcb.conv0_depth(cin, torch.bfloat16), D) == (3, 32 if cin == 24 else 16, D)
+        assert not w0[:, cin:].any()
+        assert tcb.stage_weight(args[0], torch.float32).shape == (3, cin, D)
+        x = _t(rng.normal(size=(B, T, cin)).astype(np.float32)).bfloat16()
+        w = [a.bfloat16() if a.dim() == 3 else a for a in args]
+        got = tcb.conv_block_fused(x, w0, *w[1:], k=0)
+        np.testing.assert_array_equal(got.float().numpy(), tcb.conv_block_plain(x, *w, k=0).float().numpy())
+
     @pytest.mark.parametrize("k,expect", [(0, (1, 2)), (1, (4, 8)), (2, (16, 1)), (3, (2, 4)), (4, (8, 16))])
     def test_dilations(self, k, expect):
         assert tcb.dilations(k) == expect
