@@ -6,11 +6,21 @@
 What it does, in order (one JSON object per line on stdout):
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. builds both hand-written CUDA kernels from ``speech_decoding_tpu_torch/csrc``
+  2. builds the four hand-written CUDA kernels from ``speech_decoding_tpu_torch/csrc``
      with ``nvcc`` (one process per source, all started together) and times it;
   3. K1 ``subject_matmul`` against its plain version, f32 and bf16, at the
      serving shape (B=64, T=360, D1=270, S=27, mixed subject ids) and at a
-     ragged small shape; an out-of-range id must raise;
+     ragged small shape; an out-of-range id must raise. Then K1's backward
+     (dX through the kernel on Wᵀ, dW by segment sum): the autograd grads
+     against the plain version's, f32 and bf16, at both shapes;
+  3b. K2 ``tap_conv_dw`` against ``tap_conv_dw_plain``: bf16 at B=64, T=360
+     for every (Cin, Cout, dilation) of the flagship's 15 k=3 convs, f32 at
+     B=4, ragged shapes (Cin=270, T=13 with d=16 >= T, B=3); two runs on the
+     same inputs must give the same bits;
+  3c. K3 ``retrieval_ranks`` against ``retrieval_ranks_plain`` at B=2048,
+     D=F·T=368,640 and at a ragged B=333 with D off the tile; ranks must be
+     equal except on rows whose plain similarity has an entry within 1e-6 of
+     the diagonal (those rows are listed);
   4. K4 ``conv_block_fused`` against its plain version for blocks k=0..4 at
      (64, 360, D) in bf16, in f32 at a smaller batch, and at a ragged shape
      where every dilation reaches both edges of the recording;
@@ -26,8 +36,22 @@ What it does, in order (one JSON object per line on stdout):
      one exists, the bound for this card), the fused vs module encode with
      the input on the card, retrieval against each bank, and one whole
      decode on the host clock; kernel launches per decode;
-  8. the ``kernels`` summary line, the card line again, and last
-     ``{"ok": true, "device": {...}}``.
+  8. one train step at full width in f32 (B=8), on the card and on the CPU
+     from the same weights, batch and drop mask: loss, temperature, every
+     parameter gradient and the new BN running statistics must agree;
+  9. the second main path, training: the flagship train step as
+     ``bench.py``'s ``build_flagship_step`` sets it up (B=64, bf16,
+     channels-last, precomputed collate stats, ``conv_impl=gemm_pdw``)
+     through ``training.make_train_step``: 3 warm-up steps, then 20 timed
+     steps (CUDA events and host clock) with finite losses; launches per
+     step must be K1 2 (forward, dX) and K2 15;
+  10. the third main path, eval: ``training.make_chunked_eval`` over an
+     assumed test set of 2048 segments (chunks of 256) after that training;
+     K3 must launch; timed;
+  11. timings of K1's backward dX, K2 (each of the 15 launches of a step and
+     their sum) and K3 at B=2048: kernel, plain, library yardstick, bound;
+  12. the ``kernels`` summary line (K1, K4, K2, K3), the card line again, and
+     last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception exits non-zero without the last line; so does a
 machine without a CUDA device, or a directory without the port package.
@@ -49,8 +73,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # published dense peaks of the H100 SXM (NVIDIA data sheet, 700 W): bf16
-# tensor-core FLOP/s and device-memory bytes/s
-H100_SXM = ("H100 80GB HBM3", {"bf16": 989e12, "bytes": 3.35e12})
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores, device-memory bytes/s
+H100_SXM = ("H100 80GB HBM3", {"bf16": 989e12, "f32": 67e12, "bytes": 3.35e12})
 
 
 def emit(**obj) -> None:
@@ -112,6 +136,46 @@ def compare(name: str, got, want, atol: float, rtol: float) -> float:
     return max_abs
 
 
+def near_tie_rows(Z, Y, tol: float = 1e-6) -> set:
+    """Rows whose plain similarity has an off-diagonal entry within ``tol``
+    of the diagonal: there another summation order may flip a compare."""
+    import torch
+
+    n = Z.shape[0]
+    y, z = Y.reshape(n, -1).float(), Z.reshape(n, -1).float()
+    ny, nz = torch.linalg.vector_norm(y, dim=-1), torch.linalg.vector_norm(z, dim=-1)
+    sim = (y @ z.T) / torch.clamp_min(ny[:, None] * nz[None, :], 1e-8)
+    diag = torch.linalg.vecdot(y, z) / torch.clamp_min(ny * nz, 1e-8)
+    close = (sim - diag[:, None]).abs() < tol
+    close.fill_diagonal_(False)
+    return set(torch.nonzero(close.any(dim=1)).flatten().tolist())
+
+
+def flagship_convs(D1: int, D2: int, dilations):
+    """(Cin, Cout, dilation) of the encoder's 15 k=3 convs, in step order."""
+    convs = []
+    for k in range(5):
+        d0, d1 = dilations(k)
+        convs += [(D1 if k == 0 else D2, D2, d0), (D2, D2, d1), (D2, 2 * D2, 2)]
+    return convs
+
+
+# the collate of bench.py's build_flagship_step: precomputed scale stats, channels-last
+FLAGSHIP_COLLATE = {"baseline_len_samp": 60, "clamp_lim": 20.0, "clamp": True, "precomputed": True,
+                    "channels_last": True}
+
+
+def compare_quiet(name: str, got, want, atol: float, rtol: float) -> float:
+    """``compare`` without the line: raises on a mismatch, returns max |Δ|."""
+    import torch
+
+    g, w = got.detach().float(), want.detach().float()
+    err = (g - w).abs()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()) or float((err - rtol * w.abs()).max()) > atol:
+        raise AssertionError(f"{name}: off by more than {atol} + {rtol}·|want|")
+    return float(err.max())
+
+
 def random_bn_stats(encoder, gen) -> None:
     """Non-trivial BatchNorm parameters and running statistics."""
     import torch
@@ -138,15 +202,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
+        from speech_decoding_tpu_torch.config import load_config
         from speech_decoding_tpu_torch.data.layout import ch_locations_2d
         from speech_decoding_tpu_torch.inference import SpeechDecoder
-        from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder
+        from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder, spatial_dropout_mask
         from speech_decoding_tpu_torch.ops import _build
         from speech_decoding_tpu_torch.ops.conv_block import (
-            conv_block_fused, conv_block_plain, prepare_fused_stack,
+            conv_block_fused, conv_block_plain, dilations, prepare_fused_stack,
         )
+        from speech_decoding_tpu_torch.ops.retrieval import retrieval_ranks, retrieval_ranks_plain
+        from speech_decoding_tpu_torch.ops.scaling import window_scale_stats
         from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain
+        from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw, tap_conv_dw_plain
         from speech_decoding_tpu_torch.serving import DecoderServer, decode_request
+        from speech_decoding_tpu_torch.training import create_train_state, make_chunked_eval, make_train_step
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable here ({e})", file=sys.stderr)
         return 3
@@ -162,7 +231,7 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t = time.perf_counter()
-    libs = _build.build(["subject_matmul", "conv_block"])
+    libs = _build.build(["subject_matmul", "conv_block", "tap_conv_dw", "retrieval_ranks"])
     emit(phase="build", seconds=time.perf_counter() - t, libraries=[os.path.relpath(p, ROOT) for p in libs])
 
     B, C, T, D1, D2, F, K, S = 64, 208, 360, 270, 320, 1024, 32, 27
@@ -186,6 +255,79 @@ def main() -> int:
         raise AssertionError("K1 accepted an out-of-range subject id")
     except ValueError:
         emit(check="K1 rejects an out-of-range subject id")
+
+    # K1 backward: dX through the kernel on Wᵀ, dW by segment sum, against the
+    # plain version's autograd; tolerance relative to the largest entry (f32:
+    # order of the sums; bf16: the outputs round to bf16)
+    k1b_err = {}
+    for dtype, rel in ((f32, 1e-5), (bf16, 1e-2)):
+        for shape in ((B, T, D1, D1, S), (3, 37, 19, 150, 4)):
+            x, w, ids = k1_inputs(*shape, dtype)
+            gy = torch.randn(shape[0], shape[1], shape[3], generator=gen).to(dev, dtype)
+            grads = []
+            for fn in (subject_matmul, subject_matmul_plain):
+                xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+                fn(xa, wa, ids).backward(gy)
+                grads.append((xa.grad, wa.grad))
+            for part, got, want in zip(("dX", "dW"), *grads):
+                name = f"K1 backward {part} {str(dtype)[6:]} {shape}"
+                k1b_err[name] = compare(name, got, want, rel * float(want.abs().max()), rel)
+
+    # -- 3b. K2 vs plain -----------------------------------------------------
+    # bf16 x and g: products exact in f32, both sides sum in f32 in another
+    # order (1e-4 of the largest entry); f32 likewise at 1e-5
+    convs = flagship_convs(D1, D2, dilations)
+    k2_err = {}
+    xs = {c: torch.randn(B, T, c, generator=gen).to(dev, bf16) for c in (D1, D2)}
+    gs = {c: torch.randn(B, T, c, generator=gen).to(dev, bf16) for c in (D2, 2 * D2)}
+    for cin, cout, d in sorted(set(convs)):
+        want = tap_conv_dw_plain(xs[cin], gs[cout], d)
+        name = f"K2 bf16 {(B, T, cin, cout)} d={d}"
+        k2_err[name] = compare(name, tap_conv_dw(xs[cin], gs[cout], d), want, 1e-4 * float(want.abs().max()), 1e-4)
+    for dtype, rel, shapes in ((f32, 1e-5, [(4, T, D1, D2, 1), (4, T, D2, D2, 16), (4, T, D2, 2 * D2, 2)]),
+                               (f32, 1e-5, [(3, 13, 270, 40, 16), (3, 13, 270, 40, 4), (3, 37, 270, 72, 8)]),
+                               (bf16, 1e-4, [(3, 13, 270, 40, 16), (3, 37, 270, 72, 8)])):
+        for b_, t_, cin, cout, d in shapes:
+            x = torch.randn(b_, t_, cin, generator=gen).to(dev, dtype)
+            gy = torch.randn(b_, t_, cout, generator=gen).to(dev, dtype)
+            want = tap_conv_dw_plain(x, gy, d)
+            name = f"K2 {str(dtype)[6:]} {(b_, t_, cin, cout)} d={d}"
+            k2_err[name] = compare(name, tap_conv_dw(x, gy, d), want, rel * float(want.abs().max()), rel)
+    for dtype in (bf16, f32):
+        x, gy = xs[D2].to(dtype), gs[2 * D2].to(dtype)
+        first, second = tap_conv_dw(x, gy, 2), tap_conv_dw(x, gy, 2)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"K2 {dtype}: two runs on the same inputs differ")
+        emit(check=f"K2 {str(dtype)[6:]} deterministic", shape=[B, T, D2, 2 * D2], bitwise_equal=True)
+    del xs, gs
+
+    # -- 3c. K3 vs plain -----------------------------------------------------
+    # Z = a·Y + noise with a = 2/sqrt(D): the diagonal cosine sits two
+    # standard deviations above a random pair's, so ranks spread
+    NE = 2048  # segments in the eval phase below: an assumed test-set size
+    gdev = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def k3_inputs(b, d):
+        Y = torch.randn(b, d, generator=gdev, device=dev)
+        return (2 / d ** 0.5 * Y + torch.randn(b, d, generator=gdev, device=dev)).to(bf16), Y
+
+    k3_err = 0
+    for b_, d in ((NE, F * T), (333, 1001)):
+        Z, Y = k3_inputs(b_, d)
+        got, want = retrieval_ranks(Z, Y), retrieval_ranks_plain(Z, Y)
+        torch.cuda.synchronize()
+        differ = set(torch.nonzero(got != want).flatten().tolist())
+        ties = near_tie_rows(Z, Y)
+        err = int((got - want).abs().max())
+        emit(check=f"K3 ranks B={b_} D={d} (Z bf16, Y f32)", rows_differing=sorted(differ),
+             near_tie_rows=sorted(ties), distinct_ranks=int(torch.unique(want).numel()), max_abs_err=err)
+        if not differ <= ties:
+            raise AssertionError(f"K3: rows {sorted(differ - ties)[:10]} differ from the plain ranks without a near-tie")
+        if torch.unique(want).numel() < 10:
+            raise AssertionError("K3 check inputs give too few distinct ranks")
+        k3_err = max(k3_err, err)
+        del Z, Y
 
     # -- 4. K4 vs plain ------------------------------------------------------
     loc = ch_locations_2d("Gwilliams2022", root_dir=ROOT, cache=False)
@@ -291,7 +433,8 @@ def main() -> int:
     decoder.decode(X, sidx, k=10)
     per_decode = {"subject_matmul": subject_matmul.launches, "conv_block_fused": conv_block_fused.launches}
     x, w, ids = k1_inputs(B, T, D1, D1, S, bf16)
-    k1_ms = time_ms(lambda: subject_matmul(x, w, ids))
+    ids_host = ids.cpu()  # as serving and training pass them: checked on the host, no wait
+    k1_ms = time_ms(lambda: subject_matmul(x, w, ids_host))
     k1_plain = time_ms(lambda: subject_matmul_plain(x, w, ids))
     k1_lib = time_ms(lambda: torch.bmm(x, w[ids.long()]))
     present = int(torch.unique(ids).numel())
@@ -345,20 +488,216 @@ def main() -> int:
          retrieve_ms={f"{k} bank (512 rows)": v for k, v in retrieve.items()},
          decode_ms_int8_bank_host_clock=decode_ms, launches_per_decode=per_decode)
 
-    # -- 8. summary ----------------------------------------------------------
+    # -- 8. one train step, card against CPU (full width, f32, B=8) ------------
+    # f32 on both sides; the sums run in another order (cuBLAS, K1's and K2's
+    # f32 paths against the CPU's BLAS), over up to 2880 rows and 320
+    # channels. Each gradient tensor is held at 1e-3 of its largest entry
+    # plus 1e-4 of the model's largest gradient: the conv biases ahead of a
+    # batch-stat BN have a zero gradient in exact arithmetic, so both sides
+    # hold rounding noise there, which scales with the gradients around it.
+    nb = 8
+    X8 = torch.randn(nb, T, C, generator=gen) * 10
+    batch8 = {"X": X8, "Y": torch.randn(nb, T, F, generator=gen),
+              "subject_idxs": torch.from_numpy(rng.integers(0, S, size=nb).astype(np.int32)),
+              "scale_stats": window_scale_stats(X8.transpose(1, 2))}
+    mask8 = spatial_dropout_mask(torch.Generator().manual_seed(args.seed), loc, 0.1)
+    pair = []
+    for device in ("cpu", "cuda"):
+        enc = BrainEncoder(compute_dtype=f32, channels_last_io=True,
+                           generator=torch.Generator().manual_seed(args.seed + 2), **enc_kw)
+        st = create_train_state(enc, device=device)
+        bt = {k: v if k == "subject_idxs" else v.to(st.device) for k, v in batch8.items()}
+        t = time.perf_counter()
+        st, m = make_train_step(collate=FLAGSHIP_COLLATE)(st, bt, drop_mask=mask8)
+        torch.cuda.synchronize()
+        pair.append((st, m, time.perf_counter() - t))
+    (cpu_st, cpu_m, cpu_s), (gpu_st, gpu_m, gpu_s) = pair
+    compare("train step f32 B=8 loss, card vs CPU", gpu_m["loss"].cpu(), cpu_m["loss"], 0.0, 1e-4)
+    compare("train step f32 B=8 temperature, card vs CPU", gpu_m["temp"].cpu(), cpu_m["temp"], 0.0, 1e-6)
+    cpu_grads = {n: p.grad for n, p in cpu_st.encoder.named_parameters()}
+    cpu_grads["clip.temp"] = cpu_st.clip.temp.grad
+    gpu_grads = {n: p.grad for n, p in gpu_st.encoder.named_parameters()}
+    gpu_grads["clip.temp"] = gpu_st.clip.temp.grad
+    gmax = max(float(g.abs().max()) for g in cpu_grads.values())
+    worst = (0.0, "")
+    for name, want in cpu_grads.items():
+        got = gpu_grads[name].cpu()
+        bound = 1e-3 * float(want.abs().max()) + 1e-4 * gmax
+        excess = float((got - want).abs().max()) / bound
+        worst = max(worst, (excess, name))
+        if not (bool(torch.isfinite(got).all()) and excess <= 1.0):
+            raise AssertionError(f"train step gradient {name}: card vs CPU off by {excess:.3g}x the bound")
+    emit(check="train step f32 B=8 gradients, card vs CPU", tensors=len(cpu_grads), largest_gradient=gmax,
+         worst_tensor=worst[1], worst_error_over_bound=worst[0],
+         bound="1e-3 * max|g| of the tensor + 1e-4 * max|g| of the model")
+    cpu_bufs = dict(cpu_st.encoder.named_buffers())
+    stats_err = 0.0
+    for name, got in gpu_st.encoder.named_buffers():
+        if name.endswith(("mean", "var")):
+            stats_err = max(stats_err, compare_quiet(name, got.cpu(), cpu_bufs[name], 1e-5, 1e-4))
+    emit(check="train step f32 B=8 BN running stats, card vs CPU", max_abs_err=stats_err, atol=1e-5, rtol=1e-4,
+         cpu_seconds=cpu_s, card_seconds_first_step=gpu_s)
+    del pair, cpu_st, gpu_st
+
+    # -- 9. the train path: the flagship step --------------------------------
+    cfg = load_config(None, ["tpu.compute_dtype=bfloat16", "tpu.conv_impl=gemm_pdw", "tpu.channels_last_io=true"])
+    enc_t = BrainEncoder.from_config(cfg, loc, num_subjects=S, generator=torch.Generator().manual_seed(args.seed + 3))
+    if (enc_t.D1, enc_t.D2, enc_t.F, enc_t.K, enc_t.compute_dtype) != (D1, D2, F, K, bf16):
+        raise AssertionError("the config does not give the flagship encoder")
+    state = create_train_state(enc_t, device="cuda")
+    Xt = torch.randn(B, T, C, generator=gdev, device=dev) * 10
+    batch = {"X": Xt, "Y": torch.randn(B, T, F, generator=gdev, device=dev),
+             "subject_idxs": torch.from_numpy(rng.integers(0, S, size=B).astype(np.int32)),  # host ids
+             "scale_stats": window_scale_stats(Xt.transpose(1, 2))}
+    step = make_train_step(collate=FLAGSHIP_COLLATE)
+    drop_gen = torch.Generator().manual_seed(args.seed)
+    losses = []
+    for _ in range(3):  # warm-up: cuBLAS heuristics, first launches
+        state, m = step(state, batch, drop_gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    n_steps = 20
+    subject_matmul.launches = conv_block_fused.launches = tap_conv_dw.launches = retrieval_ranks.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(n_steps):
+        state, m = step(state, batch, drop_gen)
+        losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    train_host_ms = (time.perf_counter() - t) / n_steps * 1e3
+    train_ms = start.elapsed_time(end) / n_steps
+    train_launches = {"subject_matmul": subject_matmul.launches, "conv_block_fused": conv_block_fused.launches,
+                      "tap_conv_dw": tap_conv_dw.launches, "retrieval_ranks": retrieval_ranks.launches}
+    losses = torch.stack(losses).tolist()
+    per_step = {k: v / n_steps for k, v in train_launches.items()}
+    emit(phase="train", config="flagship: B=64 C=208 T=360 D1=270 D2=320 F=1024 K=32 S=27, bf16, "
+         "channels-last, precomputed collate stats, conv_impl=gemm_pdw", warmup_steps=3, steps=n_steps,
+         ms_per_step_cuda_events=train_ms, ms_per_step_host_clock=train_host_ms,
+         steps_per_s=1e3 / train_host_ms, launches=train_launches, launches_per_step=per_step,
+         loss_first=losses[0], loss_last=losses[-1], losses=losses, temp=float(m["temp"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if per_step != {"subject_matmul": 2, "conv_block_fused": 0, "tap_conv_dw": 15, "retrieval_ranks": 0}:
+        raise AssertionError(f"launches per train step: {per_step}, expected K1 2 and K2 15")
+
+    # -- 10. the eval path: chunked eval over 2048 segments ----------------------
+    Xe = torch.randn(NE, T, C, generator=gdev, device=dev) * 10
+    ebatch = {"X": Xe, "Y": torch.randn(NE, T, F, generator=gdev, device=dev),
+              "subject_idxs": torch.from_numpy(rng.integers(0, S, size=NE).astype(np.int32)),
+              "scale_stats": window_scale_stats(Xe.transpose(1, 2))}
+    evaluate = make_chunked_eval(collate=FLAGSHIP_COLLATE, chunk_size=256)
+    torch.cuda.synchronize()
+    subject_matmul.launches = conv_block_fused.launches = tap_conv_dw.launches = retrieval_ranks.launches = 0
+    t = time.perf_counter()
+    ev = {k: float(v) for k, v in evaluate(state, ebatch).items()}
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    eval_launches = {"subject_matmul": subject_matmul.launches, "conv_block_fused": conv_block_fused.launches,
+                     "tap_conv_dw": tap_conv_dw.launches, "retrieval_ranks": retrieval_ranks.launches}
+    emit(phase="eval", segments=NE, test_set_size="assumed (2048 segments)", chunk=256, seconds_host_clock=eval_s,
+         launches=eval_launches, **ev)
+    if not (np.isfinite(ev["loss"]) and 0 <= ev["top1"] <= ev["top10"] <= 1):
+        raise AssertionError(f"eval metrics out of range: {ev}")
+    if eval_launches["retrieval_ranks"] < 1 or eval_launches["subject_matmul"] != NE // 256:
+        raise AssertionError(f"eval launches: {eval_launches}")
+    del ebatch, Xe
+
+    # -- 11. timings of the train and eval kernels ---------------------------
+    x, w, ids = k1_inputs(B, T, D1, D1, S, bf16)
+    gy = torch.randn(B, T, D1, generator=gen).to(dev, bf16)
+    wT = w.transpose(1, 2).contiguous()
+    ids_host = ids.cpu()
+    k1b_ms = time_ms(lambda: subject_matmul(gy, wT, ids_host))
+    k1b_plain = time_ms(lambda: subject_matmul_plain(gy, wT, ids))
+    k1b_lib = time_ms(lambda: torch.bmm(gy, wT[ids.long()]))
+    emit(timing="K1 backward dX (subject_matmul on g and Wᵀ)", shape=[B, T, D1, D1, S], dtype="bf16",
+         kernel_ms=k1b_ms, plain_ms=k1b_plain, library_ms=k1b_lib, library="torch.bmm over Wᵀ[sidx]",
+         bound_ms=k1_bound, bound_by=k1_by, launches_per_train_step=per_step["subject_matmul"])
+
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    per_conv = []
+    xs = {c: torch.randn(B, T, c, generator=gen).to(dev, bf16) for c in (D1, D2)}
+    gs = {c: torch.randn(B, T, c, generator=gen).to(dev, bf16) for c in (D2, 2 * D2)}
+    for cin, cout, d in convs:
+        x, gy = xs[cin], gs[cout]
+        ms = time_ms(lambda: tap_conv_dw(x, gy, d), reps=10)
+        plain = time_ms(lambda: tap_conv_dw_plain(x, gy, d), reps=5)
+        xp = torch.nn.functional.pad(x, (0, 0, d, d))
+        taps = [xp[:, j * d : j * d + T].reshape(B * T, cin) for j in range(3)]
+        gf = gy.reshape(B * T, cout)
+        lib = time_ms(lambda: [torch.matmul(xj.T, gf) for xj in taps], reps=10)
+        flops = 2 * cin * cout * B * (T + 2 * max(T - d, 0))  # the shifted taps see T-d valid rows
+        moved = nbytes(x, gy) + 3 * cin * cout * 4
+        bnd, by = bound_ms(flops, moved, peaks, "bf16")
+        per_conv.append({"cin": cin, "cout": cout, "d": d, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": bnd, "bound_by": by})
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bnd),
+                       ("flops", flops), ("bytes", moved)):
+            k2[key] += v
+    k2_by = bound_ms(k2["flops"], k2["bytes"], peaks, "bf16")[1]
+    emit(timing="K2 tap_conv_dw, the 15 launches of one flagship step", dtype="bf16", B=B, T=T,
+         kernel_ms=k2["ms"], plain_ms=k2["plain_ms"], library_ms=k2["library_ms"],
+         library="three torch.matmul(x_jᵀ, g) per conv (bf16 out; shifted copies made outside the timing)",
+         bound_ms=k2["bound_ms"], bound_by=k2_by, tflop=k2["flops"] / 1e12, per_conv=per_conv,
+         launches_per_train_step=per_step["tap_conv_dw"])
+    del xs, gs, taps, xp
+
+    Z, Y = k3_inputs(NE, F * T)
+    k3_ms = time_ms(lambda: retrieval_ranks(Z, Y), reps=3, warmup=1)
+    k3_plain = time_ms(lambda: retrieval_ranks_plain(Z, Y), reps=3, warmup=1)
+    y, z = Y.float(), Z.float()
+    ny, nz = torch.linalg.vector_norm(y, dim=-1), torch.linalg.vector_norm(z, dim=-1)
+    den = torch.clamp_min(ny[:, None] * nz[None, :], 1e-8)
+    diag = torch.linalg.vecdot(y, z) / torch.clamp_min(ny * nz, 1e-8)
+    k3_lib = time_ms(lambda: ((torch.matmul(y, z.T) / den) > diag[:, None]).sum(dim=1), reps=3, warmup=1)
+    k3_bound, k3_by = bound_ms(2 * NE * NE * F * T, nbytes(Z, Y) + NE * 4, peaks, "f32")
+    emit(timing="K3 retrieval_ranks", shape=[NE, F * T], dtype="Z bf16, Y f32 (cast to f32 inside)",
+         kernel_ms=k3_ms, plain_ms=k3_plain, library_ms=k3_lib,
+         library="torch.matmul(y, z.T) in f32 plus the compare-and-count (norms outside the timing)",
+         bound_ms=k3_bound, bound_by=k3_by, launches_per_eval=eval_launches["retrieval_ranks"])
+    del Z, Y, y, z
+
+    # -- 12. summary ---------------------------------------------------------
+    paths = {"serve": launches, "train": train_launches, "eval": eval_launches}
+
+    def launches_of(kernel):
+        return sum(p.get(kernel, 0) for p in paths.values())
+
     emit(kernels=[
         {"name": "subject_matmul", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/subject_matmul.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/subject_conv.py:43",
-         "launches": launches["subject_matmul"], "max_abs_err": max(k1_err.values()),
+         "launches": launches_of("subject_matmul"),
+         "launches_by_path": {k: p.get("subject_matmul", 0) for k, p in paths.items()},
+         "max_abs_err": max(k1_err.values()),
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": k1_lib},
+         "library_ms": k1_lib, "backward_max_abs_err": max(k1b_err.values()), "backward_dx_ms": k1b_ms},
         {"name": "conv_block_fused", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/conv_block.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/conv_block.py:92",
-         "launches": launches["conv_block_fused"], "max_abs_err": max(k4_err.values()),
+         "launches": launches_of("conv_block_fused"),
+         "launches_by_path": {k: p.get("conv_block_fused", 0) for k, p in paths.items()},
+         "max_abs_err": max(k4_err.values()),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4_by,
          "library_ms": None},
+        {"name": "tap_conv_dw", "route": "cuda",
+         "source": "speech_decoding_tpu_torch/csrc/tap_conv_dw.cu",
+         "replaces": "speech_decoding_tpu/ops/pallas/tap_conv.py:144",
+         "launches": launches_of("tap_conv_dw"),
+         "launches_by_path": {k: p.get("tap_conv_dw", 0) for k, p in paths.items()},
+         "max_abs_err": max(k2_err.values()),
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2_by,
+         "library_ms": k2["library_ms"]},
+        {"name": "retrieval_ranks", "route": "cuda",
+         "source": "speech_decoding_tpu_torch/csrc/retrieval_ranks.cu",
+         "replaces": "speech_decoding_tpu/ops/pallas/retrieval.py:90",
+         "launches": launches_of("retrieval_ranks"),
+         "launches_by_path": {k: p.get("retrieval_ranks", 0) for k, p in paths.items()},
+         "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": k3_lib},
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Brain encoder (eval path) and the weight bridges."""
+"""Brain encoder, CLIP loss, retrieval metrics and the weight bridges."""

@@ -1,25 +1,32 @@
-"""Brain encoder, eval path: Fourier-parameterized spatial attention +
-per-subject 1x1 convs + dilated-GLU conv stack.
+"""Brain encoder: Fourier-parameterized spatial attention + per-subject 1x1
+convs + dilated-GLU conv stack, in eval and train mode.
 
 Port of ``speech_decoding_tpu/models/brain_encoder.py`` (the reference's
-speech_decoding/models.py: SpatialAttention models.py:14-65, SubjectBlock
-models.py:89-117, ConvBlock models.py:120-166, BrainEncoder
-models.py:169-196). Same function, same parameter names and layouts as the
-flax modules, so ``models.params_bridge`` moves weights across unchanged:
+speech_decoding/models.py: SpatialAttention models.py:14-65, SpatialDropout
+models.py:68-86, SubjectBlock models.py:89-117, ConvBlock models.py:120-166,
+BrainEncoder models.py:169-196). Same function, same parameter names and
+layouts as the flax modules, so ``models.params_bridge`` moves weights
+across unchanged:
 
   * internal layout (batch, time, channels); conv kernels (k, in, out);
     ``__call__`` takes the reference layout (B, C, T) unless
     ``channels_last_io``;
   * parameters are f32, compute runs in ``compute_dtype``; BatchNorm
     normalizes in the compute dtype from f32 running statistics;
-  * the per-subject layer goes through ``ops.subject_conv.subject_matmul``,
-    the hand-written kernel for CUDA tensors (its plain version on the CPU);
+  * the per-subject layer goes through ``ops.subject_conv.subject_matmul``
+    (K1, forward and backward), the hand-written kernel for CUDA tensors (its
+    plain version on the CPU);
+  * every k=3 conv is ``TapConv``, the JAX ``_gemm_conv`` custom VJP: tap
+    GEMMs forward, the mirrored shifted-slice sum for dx, and dW through
+    ``ops.tap_conv.tap_conv_dw`` (K2);
+  * train mode normalizes with batch statistics and updates the running
+    ones in place (torch.nn.BatchNorm1d semantics), and applies one spatial
+    dropout mask to the whole batch;
   * GELU is exact (erf); initializers match torch defaults
     (U(±1/sqrt(fan_in)) for conv weights and biases, U(0, 1) for z), drawn
     from the caller's ``torch.Generator``.
 
-Train mode (batch statistics, spatial dropout) and remat come with the
-training path.
+Remat (``tpu.remat``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +41,11 @@ from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.ops.conv_block import dilations
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
+from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw
+
+# tpu.conv_impl values: all compute the same function, and the port runs
+# them all through TapConv, so every train step on the card runs K2
+_SAME_CONV_IMPLS = ("xla", "gemm", "gemm_pdw", "gemm_wide")
 
 
 def _uniform(shape, bound: float, generator, low: Optional[float] = None) -> nn.Parameter:
@@ -48,34 +60,94 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class TorchBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over (batch, time) per channel with
-    torch.nn.BatchNorm1d semantics [ref: models.py:135,143]: parameters
-    ``scale``/``bias`` and running ``mean``/``var`` (buffers), all f32."""
+    """BatchNorm over (batch, time) per channel with torch.nn.BatchNorm1d
+    semantics [ref: models.py:135,143]: parameters ``scale``/``bias`` and
+    running ``mean``/``var`` (buffers), all f32. In train mode the batch
+    statistics are the f32 mean and E[x²] − mean² over (B, T), and the
+    running ones move by momentum 0.1 towards the mean and the unbiased
+    variance (n = B·T), in place."""
 
-    def __init__(self, features: int, eps: float = 1e-5, compute_dtype=torch.float32):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 compute_dtype=torch.float32):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.compute_dtype = compute_dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 1))
+            var = (xf * xf).mean(dim=(0, 1)) - mean * mean
+            n = x.shape[0] * x.shape[1]
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.mul_(1 - m).add_(m * mean)
+                self.var.mul_(1 - m).add_(m * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps) * self.scale
         # normalize in the compute dtype (exact f32 when compute_dtype is f32)
         dt = self.compute_dtype
-        return (x.to(dt) - self.mean.to(dt)) * inv.to(dt) + self.bias.to(dt)
+        return (x.to(dt) - mean.to(dt)) * inv.to(dt) + self.bias.to(dt)
+
+
+def _conv_taps(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+    """y[t] = Σ_j x[t + (j−1)·d] @ W_j: three shifted full-width GEMMs in x's
+    dtype, zero padding at the edges. x (B, T, Cin); w (3, Cin, Cout)."""
+    B, T, Cin = x.shape
+    xp = Fn.pad(x, (0, 0, d, d))
+    y = None
+    for j in range(3):
+        yj = (xp[:, j * d : j * d + T].reshape(B * T, Cin) @ w[j]).reshape(B, T, -1)
+        y = yj if y is None else y + yj
+    return y
+
+
+class TapConv(torch.autograd.Function):
+    """The dilated k=3 'SAME' conv with the JAX ``_gemm_conv`` custom VJP
+    (``models/brain_encoder.py:162-228`` of the JAX package):
+      dx  = Σ_j shift_{-j}(g @ W_jᵀ), GEMMs in the primal dtype;
+      dW  = ``tap_conv_dw(x, g, d)`` (K2 on the card), cast to g's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, dilation: int):
+        ctx.save_for_backward(x, w)
+        ctx.dilation = dilation
+        return _conv_taps(x, w, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        d = ctx.dilation
+        B, T, Cin = x.shape
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            gf = g.reshape(B * T, -1)
+            for j in range(3):
+                hj = Fn.pad((gf @ w[j].T).reshape(B, T, Cin), (0, 0, d, d))
+                dxj = hj[:, 2 * d - j * d : 2 * d - j * d + T]
+                dx = dxj if dx is None else dx + dxj
+        if ctx.needs_input_grad[1]:
+            dw = tap_conv_dw(x.contiguous(), g.contiguous(), d).to(g.dtype)
+        return dx, dw, None
 
 
 class Conv1d(nn.Module):
     """1-D conv in (B, T, C) layout, torch-default init, 'SAME' padding:
-    k=1 is one flat (B·T, Cin) GEMM, odd k is k shifted full-width GEMMs."""
+    k=1 is one flat (B·T, Cin) GEMM, k=3 is ``TapConv`` (three shifted
+    full-width GEMMs, dW through K2). The encoder has no other kernel size,
+    and K2 computes exactly three taps, so others raise ValueError."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
                  dilation: int = 1, compute_dtype=torch.float32, generator=None):
         super().__init__()
-        assert kernel_size % 2 == 1, "odd kernels only ('SAME' centering)"
+        if kernel_size not in (1, 3):
+            raise ValueError(f"Conv1d takes kernel_size 1 or 3 (K2 computes three taps), got {kernel_size}")
         self.dilation = dilation
         self.compute_dtype = compute_dtype
         bound = 1.0 / math.sqrt(in_features * kernel_size)
@@ -86,18 +158,11 @@ class Conv1d(nn.Module):
         dt = self.compute_dtype
         x = x.to(dt)
         w = self.kernel.to(dt)
-        k = w.shape[0]
         B, T, Cin = x.shape
-        if k == 1:
+        if w.shape[0] == 1:
             y = (x.reshape(B * T, Cin) @ w[0]).reshape(B, T, -1)
         else:
-            p = (k // 2) * self.dilation
-            xp = Fn.pad(x, (0, 0, p, p))
-            y = None
-            for j in range(k):
-                xj = xp[:, j * self.dilation : j * self.dilation + T].reshape(B * T, Cin)
-                yj = (xj @ w[j]).reshape(B, T, -1)
-                y = yj if y is None else y + yj
+            y = TapConv.apply(x, w, self.dilation)
         return y + self.bias.to(dt)
 
 
@@ -111,10 +176,29 @@ def fourier_bases(loc: np.ndarray, K: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.cos(phi), np.sin(phi)
 
 
+def dropout_mask_at(loc, center_idx: int, d_drop: float, dtype=torch.float32) -> torch.Tensor:
+    """(C,) mask: 0 for every sensor within Euclidean distance ``d_drop`` of
+    sensor ``center_idx``, 1 elsewhere [ref: models.py:77-84]."""
+    loc = torch.as_tensor(np.asarray(loc, np.float32))
+    distances = torch.linalg.vector_norm(loc - loc[int(center_idx)], dim=-1)
+    return torch.where(distances < d_drop, 0.0, 1.0).to(dtype)
+
+
+def spatial_dropout_mask(generator: Optional[torch.Generator], loc, d_drop: float,
+                         dtype=torch.float32) -> torch.Tensor:
+    """Train-time spatial dropout: one random centre sensor for the whole
+    batch, drawn from ``generator`` (a CPU generator; None takes torch's
+    default). Returns the (C,) mask on the CPU. JAX draws its centre from a
+    threefry key, so the two streams differ; tests hand the port JAX's mask."""
+    center = torch.randint(0, len(loc), (), generator=generator)
+    return dropout_mask_at(loc, int(center), d_drop, dtype)
+
+
 class SpatialAttention(nn.Module):
     """Fourier-parameterized spatial re-mixing of sensor channels
     [ref: models.py:14-65]: logits a = Re(z)·cos(phi) + Im(z)·sin(phi),
-    softmax over channels in f32, then a channel mix in the compute dtype."""
+    softmax over channels in f32, then a channel mix in the compute dtype. A
+    ``drop_mask`` (C,) zeroes dropped sensors first (train mode)."""
 
     def __init__(self, D1: int, K: int, loc: np.ndarray, compute_dtype=torch.float32, generator=None):
         super().__init__()
@@ -125,10 +209,13 @@ class SpatialAttention(nn.Module):
         self.register_buffer("cos_b", torch.from_numpy(np.asarray(cos_b, np.float32)), persistent=False)
         self.register_buffer("sin_b", torch.from_numpy(np.asarray(sin_b, np.float32)), persistent=False)
 
-    def forward(self, X: torch.Tensor) -> torch.Tensor:
+    def forward(self, X: torch.Tensor, drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         a = self.z_re @ self.cos_b + self.z_im @ self.sin_b  # (D1, C)
         wts = torch.softmax(a, dim=-1).to(self.compute_dtype)
-        return X.to(self.compute_dtype) @ wts.T  # (B, T, C) -> (B, T, D1)
+        X = X.to(self.compute_dtype)
+        if drop_mask is not None:
+            X = X * drop_mask.to(X.device, self.compute_dtype, non_blocking=True)
+        return X @ wts.T  # (B, T, C) -> (B, T, D1)
 
 
 class SubjectBlock(nn.Module):
@@ -143,8 +230,9 @@ class SubjectBlock(nn.Module):
         self.conv = Conv1d(D1, D1, 1, compute_dtype=compute_dtype, generator=generator)
         self.subject_kernel = _uniform((num_subjects, D1, D1), 1.0 / math.sqrt(D1), generator)
 
-    def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor) -> torch.Tensor:
-        X = self.conv(self.spatial_attention(X))
+    def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor,
+                drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        X = self.conv(self.spatial_attention(X, drop_mask))
         W = self.subject_kernel.to(self.compute_dtype)
         return subject_matmul(X.contiguous(), W.contiguous(), subject_idxs)
 
@@ -164,13 +252,13 @@ class ConvBlock(nn.Module):
         self.batchnorm1 = TorchBatchNorm(D2, compute_dtype=dt)
         self.conv2 = Conv1d(D2, 2 * D2, 3, 2, dt, generator)
 
-    def forward(self, X: torch.Tensor) -> torch.Tensor:
+    def forward(self, X: torch.Tensor, train: bool = False) -> torch.Tensor:
         Y = self.conv0(X)
         if self.k > 0:
             Y = Y + X  # skip [ref: models.py:156]
-        Y = _gelu(self.batchnorm0(Y))
+        Y = _gelu(self.batchnorm0(Y, train))
         Y = self.conv1(Y) + Y
-        Y = _gelu(self.batchnorm1(Y))
+        Y = _gelu(self.batchnorm1(Y, train))
         Y = self.conv2(Y)
         a, b = Y.chunk(2, dim=-1)  # GLU over channels [ref: models.py:164]
         return a * torch.sigmoid(b)
@@ -182,10 +270,11 @@ class BrainEncoder(nn.Module):
     -> Z (B, F, T); with ``channels_last_io`` X (B, T, C) -> Z (B, T, F)."""
 
     def __init__(self, num_subjects: int, loc: np.ndarray, D1: int = 270, D2: int = 320,
-                 F: int = 1024, K: int = 32, compute_dtype=torch.float32,
+                 F: int = 1024, K: int = 32, d_drop: float = 0.1, compute_dtype=torch.float32,
                  channels_last_io: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_subjects, self.D1, self.D2, self.F, self.K = num_subjects, D1, D2, F, K
+        self.d_drop = d_drop
         self.loc = np.asarray(loc, np.float32)
         self.compute_dtype = compute_dtype
         self.channels_last_io = channels_last_io
@@ -204,22 +293,43 @@ class BrainEncoder(nn.Module):
     def from_config(cls, args, loc, num_subjects: int, generator=None) -> "BrainEncoder":
         """Encoder of a config. ``tpu.use_pallas`` is not read: it picks the
         JAX package's TPU kernels, while the port's kernel wrappers follow the
-        device of their tensors."""
+        device of their tensors. ``tpu.conv_impl`` 'xla', 'gemm', 'gemm_pdw'
+        and 'gemm_wide' compute the same function and all run ``TapConv``
+        (dW through K2); 'pallas_taps' (K5) and ``tpu.remat`` raise
+        NotImplementedError until they are ported."""
+        impl = str(args.select("tpu.conv_impl", "xla"))
+        if impl == "pallas_taps":
+            raise NotImplementedError("tpu.conv_impl=pallas_taps needs K5 (tap_conv), which is not ported yet")
+        if impl not in _SAME_CONV_IMPLS:
+            raise ValueError(f"unknown tpu.conv_impl {impl!r}")
+        if args.select("tpu.remat", False):
+            raise NotImplementedError("tpu.remat is not ported yet: recomputing a block would update "
+                                      "its BatchNorm running statistics twice")
         F = 1024 if args.preprocs["last4layers"] else args.F  # [ref: models.py:176]
         dtype = getattr(torch, str(args.select("tpu.compute_dtype", "float32")))
         return cls(
             num_subjects=num_subjects, loc=loc, D1=args.D1, D2=args.D2, F=F, K=args.K,
-            compute_dtype=dtype,
+            d_drop=float(args.d_drop), compute_dtype=dtype,
             channels_last_io=bool(args.select("tpu.channels_last_io", False)),
             generator=generator,
         )
 
-    def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor) -> torch.Tensor:
+    def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor, train: bool = False,
+                drop_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Z from X. ``train`` uses batch statistics (updating the running
+        ones in place) and spatial dropout: the (C,) ``drop_mask`` if given
+        (the tests pass the mask JAX draws), else one drawn from
+        ``generator``."""
+        if drop_mask is not None and not train:
+            raise ValueError("drop_mask applies in train mode only")
+        if train and drop_mask is None:
+            drop_mask = spatial_dropout_mask(generator, self.loc, self.d_drop)
         if not self.channels_last_io:
             X = X.transpose(-1, -2)  # reference (B, C, T) -> internal (B, T, C)
-        X = self.subject_block(X.to(self.compute_dtype), subject_idxs)
+        X = self.subject_block(X.to(self.compute_dtype), subject_idxs, drop_mask)
         for blk in self.conv_blocks:
-            X = blk(X)
+            X = blk(X, train)
         X = _gelu(self.conv_final1(X))
         X = _gelu(self.conv_final2(X))
         return X if self.channels_last_io else X.transpose(-1, -2)

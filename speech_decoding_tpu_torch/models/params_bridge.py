@@ -9,6 +9,10 @@ transposed: ``params["conv0"]["conv1"]["kernel"]`` is the port's
 ``conv2.batchnorm0.mean`` buffer. The trees are nested dicts of numpy
 arrays (``jax.tree.map(np.asarray, ...)`` of the flax variables, or
 ``models.torch_port.brain_encoder_from_torch`` output).
+
+A whole JAX ``TrainState.params`` is ``{"encoder": ..., "clip": {"temp":
+(1,)}}``: ``load_flax_train`` / ``flax_train_from_state`` carry the CLIP
+temperature beside the encoder.
 """
 
 from __future__ import annotations
@@ -57,3 +61,21 @@ def flax_from_state(encoder: torch.nn.Module) -> Tuple[Dict, Dict]:
     for name, t in encoder.state_dict().items():
         (stats if name in buffers else params)[name] = t.detach().cpu().float().numpy()
     return _unflatten(params), _unflatten(stats)
+
+
+def load_flax_train(encoder: torch.nn.Module, clip: torch.nn.Module, params: Mapping,
+                    batch_stats: Mapping) -> None:
+    """Load a JAX ``TrainState``'s params (encoder and CLIP temperature) and
+    batch_stats into ``encoder`` and ``clip`` (a ``CLIPLoss``) in place."""
+    load_flax(encoder, params["encoder"], batch_stats)
+    temp = np.asarray(params["clip"]["temp"], np.float32)
+    if temp.shape != tuple(clip.temp.shape):
+        raise ValueError(f"clip temperature must have shape {tuple(clip.temp.shape)}, got {temp.shape}")
+    with torch.no_grad():
+        clip.temp.copy_(torch.tensor(temp))
+
+
+def flax_train_from_state(encoder: torch.nn.Module, clip: torch.nn.Module) -> Tuple[Dict, Dict]:
+    """(params, batch_stats) in the layout of a JAX ``TrainState``."""
+    params, stats = flax_from_state(encoder)
+    return {"encoder": params, "clip": {"temp": clip.temp.detach().cpu().float().numpy()}}, stats

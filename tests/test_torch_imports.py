@@ -27,7 +27,10 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "speech_decoding_tpu_torch.ops.conv_block" in mods and len(mods) >= 15
+    for m in ("ops.conv_block", "ops.scaling", "ops.tap_conv", "ops.retrieval", "models.loss",
+              "models.classifier", "training", "training.state", "training.steps"):
+        assert f"speech_decoding_tpu_torch.{m}" in mods, m
+    assert len(mods) >= 24
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
@@ -48,7 +51,7 @@ def test_kernel_sources_and_config_ship_with_the_package():
     from speech_decoding_tpu_torch.config import load_config
     from speech_decoding_tpu_torch.ops import _build
 
-    for name in ("subject_matmul", "conv_block"):
+    for name in ("subject_matmul", "conv_block", "tap_conv_dw", "retrieval_ranks"):
         src = os.path.join(_build.SRC_DIR, f"{name}.cu")
         with open(src) as f:
             text = f.read()

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the
-card. Marked ``cuda``; each test skips when no CUDA device is present (the
+"""The hand-written CUDA kernels (K1 forward and backward, K2, K3, K4)
+against their plain PyTorch versions, on the card. Marked ``cuda``; each test skips when no CUDA device is present (the
 CPU tier holds the plain versions against JAX instead). Run on a GPU with
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
@@ -10,7 +10,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from speech_decoding_tpu_torch.ops import conv_block as tcb  # noqa: E402
+from speech_decoding_tpu_torch.ops.retrieval import retrieval_ranks, retrieval_ranks_plain  # noqa: E402
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain  # noqa: E402
+from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw, tap_conv_dw_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +143,160 @@ def test_subject_matmul_kernel_takes_host_ids(dev):
     _close(got, subject_matmul_plain(x, w, ids.to(dev)), torch.float32)
     with pytest.raises(ValueError, match="subject ids"):
         subject_matmul(x, w, ids + 1)
+
+
+def _close_scaled(got, want, rel):
+    """|got - want| <= rel·max|want| + rel·|want|: for sums whose terms
+    cancel, the rounding of the order scales with the largest entry."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    bound = rel * float(w.abs().max()) + rel * w.abs()
+    assert bool(torch.isfinite(g).all())
+    assert bool(((g - w).abs() <= bound).all()), float(((g - w).abs() - bound).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 360, 270, 270, 27), (3, 37, 19, 150, 4)])
+def test_subject_matmul_backward(dev, dtype, shape):
+    """dX through the kernel on Wᵀ and dW by segment sum, against the plain
+    version's autograd grads. f32 1e-5 of the largest entry; bf16 1e-2 (the
+    outputs round to bf16, a flipped rounding is one ulp)."""
+    B, T, Din, Dout, S = shape
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(B, T, Din, device=dev, generator=g).to(dtype)
+    w = torch.randn(S, Din, Dout, device=dev, generator=g).div(Din ** 0.5).to(dtype)
+    gy = torch.randn(B, T, Dout, device=dev, generator=g).to(dtype)
+    ids = torch.randint(0, S, (B,), device=dev, generator=g, dtype=torch.int32)
+    grads = []
+    for fn in (subject_matmul, subject_matmul_plain):
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xa, wa, ids).backward(gy)
+        grads.append((xa.grad, wa.grad))
+    before = subject_matmul.launches
+    subject_matmul(x.requires_grad_(), w, ids).backward(gy)
+    assert subject_matmul.launches == before + 2  # forward and dX
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in zip(grads[0], grads[1]):
+        assert got.dtype == dtype
+        _close_scaled(got, want, rel)
+
+
+# (Cin, Cout, dilations) of the flagship's k=3 convs (D1=270, D2=320)
+K2_SHAPES = [(270, 320, (1,)), (320, 320, (1, 2, 4, 8, 16)), (320, 640, (2,))]
+
+
+@pytest.mark.parametrize("cin,cout,dils", K2_SHAPES)
+def test_tap_conv_dw_flagship_bf16(dev, cin, cout, dils):
+    """bf16 x and g at B=64, T=360: products exact in f32, both sides sum in
+    f32 in another order (1e-4 of the largest entry)."""
+    g = torch.Generator(device=dev).manual_seed(cin + cout)
+    x = torch.randn(64, 360, cin, device=dev, generator=g).bfloat16()
+    gy = torch.randn(64, 360, cout, device=dev, generator=g).bfloat16()
+    for d in dils:
+        before = tap_conv_dw.launches
+        got = tap_conv_dw(x, gy, d)
+        assert tap_conv_dw.launches == before + 1 and got.shape == (3, cin, cout) and got.dtype == torch.float32
+        _close_scaled(got, tap_conv_dw_plain(x, gy, d), 1e-4)
+
+
+@pytest.mark.parametrize("B,T,cin,cout,d", [(4, 360, 320, 320, 2), (4, 360, 270, 320, 1), (3, 13, 270, 40, 16),
+                                            (3, 13, 270, 40, 4), (1, 1, 1, 1, 1), (5, 70, 24, 344, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tap_conv_dw_ragged_and_f32(dev, B, T, cin, cout, d, dtype):
+    """Channel counts off the 64-wide tiles and off 16, T shorter than d, one
+    row; f32 on the CUDA cores."""
+    g = torch.Generator(device=dev).manual_seed(B * T + d)
+    x = torch.randn(B, T, cin, device=dev, generator=g).to(dtype)
+    gy = torch.randn(B, T, cout, device=dev, generator=g).to(dtype)
+    got = tap_conv_dw(x, gy, d)
+    _close_scaled(got, tap_conv_dw_plain(x, gy, d), 1e-5 if dtype == torch.float32 else 1e-4)
+    if d >= T:
+        assert not got[0].any() and not got[2].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tap_conv_dw_is_deterministic(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(64, 360, 320, device=dev, generator=g).to(dtype)
+    gy = torch.randn(64, 360, 640, device=dev, generator=g).to(dtype)
+    a = tap_conv_dw(x, gy, 2)
+    b = tap_conv_dw(x, gy, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_tap_conv_dw_rejects(dev):
+    x = torch.zeros(2, 8, 16, device=dev)
+    with pytest.raises(TypeError):
+        tap_conv_dw(x, torch.zeros(2, 8, 4, device=dev).bfloat16(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tap_conv_dw(x.transpose(0, 1).contiguous().transpose(0, 1), torch.zeros(2, 8, 4, device=dev), 1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tap_conv_dw(x, torch.zeros(2, 8, 4), 1)
+
+
+def near_tie_rows(Z, Y, tol=1e-6):
+    """Rows whose plain similarity has an off-diagonal entry within ``tol``
+    of the diagonal: there a different summation order may flip a compare."""
+    B = Z.shape[0]
+    y = Y.reshape(B, -1).float()
+    z = Z.reshape(B, -1).float()
+    ny, nz = y.norm(dim=-1), z.norm(dim=-1)
+    sim = (y @ z.T) / torch.clamp_min(ny[:, None] * nz[None, :], 1e-8)
+    diag = (y * z).sum(-1) / torch.clamp_min(ny * nz, 1e-8)
+    close = (sim - diag[:, None]).abs() < tol
+    close.fill_diagonal_(False)
+    return set(torch.nonzero(close.any(dim=1)).flatten().tolist())
+
+
+@pytest.mark.parametrize("B,D", [(333, 1004), (333, 1001), (512, 36864), (1, 8), (130, 3)])
+def test_retrieval_ranks_kernel(dev, B, D):
+    """Ranks equal the plain version's except on listed near-tie rows. D=1004
+    ends in a half chunk; D=1001 is not a multiple of 4 (scalar loads)."""
+    g = torch.Generator(device=dev).manual_seed(B + D)
+    Y = torch.randn(B, D, device=dev, generator=g)
+    # diagonal cosine about 2/sqrt(D), two standard deviations of a random
+    # pair's: the diagonal beats most rows but not all, so ranks spread
+    Z = 2 / D ** 0.5 * Y + torch.randn(B, D, device=dev, generator=g)
+    before = retrieval_ranks.launches
+    got = retrieval_ranks(Z.bfloat16(), Y)
+    assert retrieval_ranks.launches == before + 1 and got.dtype == torch.int32
+    want = retrieval_ranks_plain(Z.bfloat16(), Y)
+    differ = set(torch.nonzero(got != want).flatten().tolist())
+    assert differ <= near_tie_rows(Z.bfloat16(), Y), sorted(differ)[:10]
+    if B > 100:
+        assert len(torch.unique(want)) > 10  # ranks spread
+
+
+def test_train_step_card_matches_cpu(dev):
+    """Three train steps at a small width in f32 on the card and on the CPU,
+    the same weights, batches and masks: loss and temperature at rtol 1e-4,
+    BN running variances at 1e-4 (sums in another order)."""
+    import numpy as np
+
+    from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder
+    from speech_decoding_tpu_torch.training import create_train_state, make_train_step
+
+    loc = np.random.default_rng(0).uniform(0.1, 0.9, (40, 2)).astype(np.float32)
+    states = []
+    for device in ("cpu", "cuda"):
+        enc = BrainEncoder(num_subjects=3, loc=loc, D1=24, D2=32, F=16, K=4, channels_last_io=True,
+                           generator=torch.Generator().manual_seed(1))
+        states.append(create_train_state(enc, lr=1e-3, device=device))
+    step = make_train_step()
+    rng = np.random.default_rng(2)
+    for i in range(3):
+        batch = {"X": torch.from_numpy(rng.normal(size=(8, 50, 40)).astype(np.float32)),
+                 "Y": torch.from_numpy(rng.normal(size=(8, 50, 16)).astype(np.float32)),
+                 "subject_idxs": torch.from_numpy(rng.integers(0, 3, 8).astype(np.int32))}
+        mask = (torch.arange(40) % 5 != i).float()
+        out = []
+        for st in states:
+            dev_batch = {k: (v if k == "subject_idxs" else v.to(st.device)) for k, v in batch.items()}
+            out.append(step(st, dev_batch, drop_mask=mask)[1])
+        for k in ("loss", "temp"):
+            torch.testing.assert_close(out[1][k].cpu(), out[0][k], rtol=1e-4, atol=1e-6)
+    va = {k: v for k, v in states[0].encoder.named_buffers() if k.endswith("var")}
+    for k, v in states[1].encoder.named_buffers():
+        if k in va:
+            torch.testing.assert_close(v.cpu(), va[k], rtol=1e-4, atol=1e-6)

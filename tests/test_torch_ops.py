@@ -1,6 +1,7 @@
 """Port kernels' plain versions against the JAX Pallas kernels (interpret
-mode on the CPU): K1 ``subject_matmul`` and K4 ``conv_block_fused``, plus the
-kernel build module's CPU-side behaviour. The CUDA kernels themselves are
+mode on the CPU): K1 ``subject_matmul`` (forward and backward), K2
+``tap_conv_dw``, K3 ``retrieval_ranks`` and K4 ``conv_block_fused``, plus the
+collate functions and the kernel build module's CPU-side behaviour. The CUDA kernels themselves are
 held against these plain versions on the card (tests/test_torch_kernels_cuda.py,
 chip_smoke.py)."""
 
@@ -8,14 +9,28 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from speech_decoding_tpu.ops import scaling as jsc  # noqa: E402
 from speech_decoding_tpu.ops.pallas import conv_block as jcb  # noqa: E402
+from speech_decoding_tpu.ops.pallas.retrieval import retrieval_ranks_pallas as j_retrieval_ranks  # noqa: E402
 from speech_decoding_tpu.ops.pallas.subject_conv import subject_matmul as j_subject_matmul  # noqa: E402
+from speech_decoding_tpu.ops.pallas.tap_conv import tap_conv_dw as j_tap_conv_dw  # noqa: E402
 from speech_decoding_tpu_torch.ops import _build  # noqa: E402
 from speech_decoding_tpu_torch.ops import conv_block as tcb  # noqa: E402
+from speech_decoding_tpu_torch.ops.retrieval import retrieval_metrics_kernel, retrieval_ranks  # noqa: E402
+from speech_decoding_tpu_torch.ops.scaling import (  # noqa: E402
+    apply_scale_stats,
+    baseline_correct,
+    clamp,
+    gwilliams_collate,
+    robust_scale,
+    window_scale_stats,
+)
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain  # noqa: E402
+from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw, tap_conv_dw_plain  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -121,6 +136,7 @@ class TestBuild:
         a = _build._lib_path("subject_matmul")
         b = _build._lib_path("conv_block")
         assert a != b and a.startswith(_build.BUILD_DIR)
+        assert len({_build._lib_path(n) for n in ("tap_conv_dw", "retrieval_ranks", "subject_matmul")}) == 3
         assert a == _build._lib_path("subject_matmul")
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
@@ -128,3 +144,156 @@ class TestBuild:
         _build.check(0, "ok")
         with pytest.raises(RuntimeError, match="cudaError_t 9"):
             _build.check(9, "launch")
+
+
+class TestSubjectMatmulGrad:
+    """K1 backward: the port's autograd grads against ``jax.vjp`` of the
+    Pallas ``subject_matmul`` (interpret mode), f32, atol 1e-5 of values of
+    order 10 (sums in another order)."""
+
+    @pytest.mark.parametrize("shape", [(B, T, D, D, S), (5, 13, 24, 8, 3)])
+    def test_grads_match_jax_vjp(self, shape):
+        b, t, din, dout, s = shape
+        rng = np.random.default_rng(2)
+        x = rng.normal(size=(b, t, din)).astype(np.float32)
+        w = rng.normal(size=(s, din, dout)).astype(np.float32)
+        g = rng.normal(size=(b, t, dout)).astype(np.float32)
+        ids = (np.arange(b) % s).astype(np.int32)
+        rng.shuffle(ids)
+        _, vjp = jax.vjp(lambda a, c: j_subject_matmul(a, c, jnp.asarray(ids), True), jnp.asarray(x), jnp.asarray(w))
+        jdx, jdw = (np.asarray(v) for v in vjp(jnp.asarray(g)))
+        tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
+        subject_matmul(tx, tw, _t(ids)).backward(_t(g))
+        np.testing.assert_allclose(tx.grad.numpy(), jdx, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(tw.grad.numpy(), jdw, rtol=0, atol=1e-5)
+
+    def test_unused_subject_gets_zero_grad(self):
+        x = torch.ones(2, 3, D, requires_grad=True)
+        w = torch.ones(S + 1, D, D, requires_grad=True)
+        subject_matmul(x, w, torch.tensor([0, 0], dtype=torch.int32)).sum().backward()
+        assert float(w.grad[1:].abs().sum()) == 0 and float(w.grad[0].abs().sum()) > 0
+
+
+class TestTapConvDw:
+    """K2's plain version against the Pallas ``tap_conv_dw`` in interpret mode
+    (f32, rtol 1e-5 / atol 1e-4 for sums of ~100 products of order 1)."""
+
+    @pytest.mark.parametrize("d", [1, 2, 4, 16])
+    @pytest.mark.parametrize("t", [T, 16])
+    def test_plain_matches_pallas(self, d, t):
+        """T=16 with d=16: d >= T, so the shifted taps see no valid row (the
+        Pallas kernel slices x[:, :T-d], so it takes d <= T only)."""
+        rng = np.random.default_rng(d + t)
+        x = rng.normal(size=(3, t, 20)).astype(np.float32)
+        g = rng.normal(size=(3, t, 12)).astype(np.float32)
+        want = np.asarray(j_tap_conv_dw(jnp.asarray(x), jnp.asarray(g), d, interpret=True))
+        got = tap_conv_dw(_t(x), _t(g), d)
+        assert got.shape == (3, 20, 12) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+        if d >= t:
+            assert not got[0].any() and not got[2].any()
+
+    def test_dilation_past_the_recording_matches_jax_vjp(self):
+        """d=16 > T=13: against the dW of JAX's ``_gemm_conv`` VJP (its
+        einsum taps, which take any d); atol 1e-4."""
+        from speech_decoding_tpu.models.brain_encoder import _gemm_conv
+
+        rng = np.random.default_rng(3)
+        x = rng.normal(size=(3, 13, 20)).astype(np.float32)
+        w = rng.normal(size=(3, 20, 12)).astype(np.float32)
+        g = rng.normal(size=(3, 13, 12)).astype(np.float32)
+        _, vjp = jax.vjp(lambda a, c: _gemm_conv(a, c, 16, True), jnp.asarray(x), jnp.asarray(w))
+        want = np.asarray(vjp(jnp.asarray(g))[1])
+        got = tap_conv_dw(_t(x), _t(g), 16)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+        assert not got[0].any() and not got[2].any()
+
+    def test_bf16_inputs_accumulate_in_f32(self):
+        rng = np.random.default_rng(0)
+        x = _t(rng.normal(size=(2, 9, 8)).astype(np.float32)).bfloat16()
+        g = _t(rng.normal(size=(2, 9, 5)).astype(np.float32)).bfloat16()
+        got = tap_conv_dw(x, g, 2)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), tap_conv_dw_plain(x.float(), g.float(), 2).numpy())
+
+    def test_cpu_call_launches_nothing_and_shape_errors(self):
+        before = tap_conv_dw.launches
+        tap_conv_dw(torch.ones(1, 4, 3), torch.ones(1, 4, 2), 1)
+        assert tap_conv_dw.launches == before
+        with pytest.raises(ValueError, match="shapes"):
+            tap_conv_dw(torch.ones(1, 4, 3), torch.ones(1, 5, 2), 1)
+        with pytest.raises(ValueError, match="dilation"):
+            tap_conv_dw(torch.ones(1, 4, 3), torch.ones(1, 4, 2), 0)
+
+
+class TestRetrievalRanks:
+    """K3's plain version against the Pallas ``retrieval_ranks_pallas`` in
+    interpret mode: ranks equal (the inputs have no near-ties)."""
+
+    @pytest.mark.parametrize("b,f,t", [(12, 8, 5), (130, 3, 7)])
+    def test_plain_matches_pallas(self, b, f, t):
+        """B=130 pads to two 128-row Pallas tiles; D=21 is not a multiple of its depth tile."""
+        rng = np.random.default_rng(b)
+        Y = rng.normal(size=(b, f, t)).astype(np.float32)
+        Z = (0.1 * Y + rng.normal(size=(b, f, t))).astype(np.float32)
+        want = np.asarray(j_retrieval_ranks(jnp.asarray(Z), jnp.asarray(Y), interpret=True))
+        got = retrieval_ranks(_t(Z), _t(Y))
+        assert got.dtype == torch.int32 and got.shape == (b,)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert len(np.unique(want)) > 3  # ranks spread
+        top1, top10 = retrieval_metrics_kernel(_t(Z), _t(Y))
+        np.testing.assert_allclose(float(top1), np.mean(want < 1))
+        np.testing.assert_allclose(float(top10), np.mean(want < 10))
+
+    def test_diagonal_never_counts(self):
+        Y = torch.ones(4, 3)
+        assert retrieval_ranks(Y.clone(), Y).tolist() == [0, 0, 0, 0]  # all equal: nothing strictly greater
+
+    def test_cpu_call_launches_nothing_and_shape_errors(self):
+        before = retrieval_ranks.launches
+        retrieval_ranks(torch.randn(3, 4), torch.randn(3, 2, 2))
+        assert retrieval_ranks.launches == before
+        with pytest.raises(ValueError, match="row"):
+            retrieval_ranks(torch.randn(3, 4), torch.randn(2, 4))
+
+
+class TestScaling:
+    """The collate functions against the JAX package's (f32, rtol 1e-5: the
+    same quantile interpolation, sums in another order)."""
+
+    @staticmethod
+    def _x(seed=0, shape=(3, 5, 40)):
+        rng = np.random.default_rng(seed)
+        x = (rng.normal(size=shape) * 10 + 3).astype(np.float32)
+        x[0, 1] = 2.5  # a flat channel: IQR 0 -> 1
+        return x
+
+    def test_robust_scale_and_stats(self):
+        x = self._x()
+        np.testing.assert_allclose(robust_scale(_t(x)).numpy(), np.asarray(jsc.robust_scale(jnp.asarray(x))),
+                                   rtol=1e-5, atol=1e-5)
+        got = window_scale_stats(_t(x)).numpy()
+        np.testing.assert_allclose(got, np.asarray(jsc.window_scale_stats(jnp.asarray(x))), rtol=1e-5, atol=1e-5)
+        assert got[0, 1, 1] == 1.0
+
+    @pytest.mark.parametrize("do_clamp", [True, False])
+    def test_collate_and_precomputed_stats(self, do_clamp):
+        x = self._x(1)
+        want = np.asarray(jsc.gwilliams_collate(jnp.asarray(x), 10, 2.0, do_clamp))
+        got = gwilliams_collate(_t(x), 10, 2.0, do_clamp).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        stats = window_scale_stats(_t(x))
+        np.testing.assert_allclose(apply_scale_stats(_t(x), stats, 2.0, do_clamp).numpy(), want,
+                                   rtol=1e-5, atol=1e-4)
+        xl = _t(np.swapaxes(x, 1, 2).copy())
+        js = jnp.asarray(stats.numpy())
+        np.testing.assert_allclose(
+            apply_scale_stats(xl, stats, 2.0, do_clamp, channels_last=True).numpy(),
+            np.asarray(jsc.apply_scale_stats(jnp.asarray(xl.numpy()), js, 2.0, do_clamp, channels_last=True)),
+            rtol=1e-6, atol=1e-6)
+
+    def test_clamp_and_baseline(self):
+        x = self._x(2)
+        np.testing.assert_array_equal(clamp(_t(x), 4.0).numpy(), np.asarray(jsc.clamp(jnp.asarray(x), 4.0)))
+        np.testing.assert_allclose(baseline_correct(_t(x), 7).numpy(),
+                                   np.asarray(jsc.baseline_correct(jnp.asarray(x), 7)), rtol=1e-6, atol=1e-5)
