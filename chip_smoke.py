@@ -579,6 +579,30 @@ def main() -> int:
          loss_first=losses[0], loss_last=losses[-1], losses=losses, temp=float(m["temp"]))
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss: {losses}")
+    # where the step's time goes: device time of every kernel over 3 more
+    # steps under torch.profiler (the profiler's own cost stretches the host
+    # side, so the idle share is taken against the unprofiled step time)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state, m = step(state, batch, drop_gen)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        # kernels and copies; a user annotation (Optimizer.step's range) spans kernels already counted
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_name.values()) / 3e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    traced = bool(by_name)  # the profiler saw device activity (untried on this machine)
+    emit(profile="flagship train step, torch.profiler over 3 steps",
+         device_busy_ms_per_step=busy_ms if traced else "not measured",
+         device_idle_share=1 - busy_ms / train_ms if traced else "not measured",
+         device_ops_per_step=sum(n for n, _ in by_name.values()) / 3,
+         top_kernels_ms_per_step={name[:80]: us / 3e3 for name, (_, us) in top})
     if per_step != {"subject_matmul": 2, "conv_block_fused": 0, "tap_conv_dw": 15, "retrieval_ranks": 0}:
         raise AssertionError(f"launches per train step: {per_step}, expected K1 2 and K2 15")
 
