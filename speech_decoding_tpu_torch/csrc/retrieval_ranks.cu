@@ -16,8 +16,10 @@
 // CUDA cores, against 6 GB of input (1.8 ms at 3.35 TB/s). It stays in f32 on
 // the CUDA cores: TF32 keeps about three digits and would reorder near-ties.
 // The design is a register-blocked SGEMM: 256 threads, 8 x 8 outputs each,
-// depth chunks of 8 staged transposed in shared memory (16-byte loads where
-// D % 4 == 0), so each shared-memory read feeds 8 FMAs.
+// depth chunks of 16 staged transposed in a two-stage shared-memory ring
+// (16-byte loads where D % 4 == 0): the next chunk's loads sit in registers
+// while the current chunk is multiplied, and each shared-memory read feeds 8
+// FMAs.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaGetLastError() of the launch. ranks must be zeroed by the caller.
@@ -29,28 +31,41 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int BT = 128;  // rows (i) and columns (j) per block
-constexpr int BK = 8;    // depth per chunk
+constexpr int BK = 16;   // depth per chunk
 constexpr int PAD = 4;
+constexpr int SLOTS = BT * BK / 4 / THREADS;  // 4-float pieces of a chunk per thread
 
-// BT rows x BK depth of src (rows r0.., row stride D) into dst[k][r]; rows
-// past n and depth past D are zero
+// a thread's share of BT rows x BK depth of src (rows r0.., row stride D),
+// in registers: piece q = threadIdx.x + THREADS * s is row q / 4, depth
+// 4 * (q % 4) .. + 3. Rows past n and depth past D are zero.
 template <bool VEC>
-__device__ __forceinline__ void load_chunk(float (*dst)[BT + PAD], const float* __restrict__ src, int r0,
-                                           int n, long long D, long long k0) {
-  if (VEC && k0 + BK <= D) {
-    const int r = threadIdx.x >> 1, kq = (threadIdx.x & 1) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) v = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + k0 + kq);
-    dst[kq + 0][r] = v.x;
-    dst[kq + 1][r] = v.y;
-    dst[kq + 2][r] = v.z;
-    dst[kq + 3][r] = v.w;
-  } else {
-    for (int e = threadIdx.x; e < BT * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK;
-      const long long k = k0 + kk;
-      dst[kk][r] = (r0 + r < n && k < D) ? src[(size_t)(r0 + r) * D + k] : 0.f;
+__device__ __forceinline__ void fetch(float4 (&v)[SLOTS], const float* __restrict__ src, int r0, int n,
+                                      long long D, long long k0) {
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int q = threadIdx.x + THREADS * s, r = q >> 2, kq = (q & 3) * 4;
+    const float* row = src + (size_t)(r0 + r) * D;
+    if (r0 + r >= n) {
+      v[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if (VEC && k0 + BK <= D) {
+      v[s] = *reinterpret_cast<const float4*>(row + k0 + kq);
+    } else {
+      const long long k = k0 + kq;
+      v[s] = make_float4(k < D ? row[k] : 0.f, k + 1 < D ? row[k + 1] : 0.f,
+                         k + 2 < D ? row[k + 2] : 0.f, k + 3 < D ? row[k + 3] : 0.f);
     }
+  }
+}
+
+// the fetched pieces into dst[k][r] (transposed: depth-major)
+__device__ __forceinline__ void stash(float (*dst)[BT + PAD], const float4 (&v)[SLOTS]) {
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int q = threadIdx.x + THREADS * s, r = q >> 2, kq = (q & 3) * 4;
+    dst[kq + 0][r] = v[s].x;
+    dst[kq + 1][r] = v[s].y;
+    dst[kq + 2][r] = v[s].z;
+    dst[kq + 3][r] = v[s].w;
   }
 }
 
@@ -59,8 +74,8 @@ __global__ void __launch_bounds__(THREADS)
 retrieval_ranks_kernel(const float* __restrict__ y, const float* __restrict__ z, const float* __restrict__ ny,
                        const float* __restrict__ nz, const float* __restrict__ diag, int32_t* __restrict__ ranks,
                        int B, long long D, float eps) {
-  __shared__ __align__(16) float ys[BK][BT + PAD];
-  __shared__ __align__(16) float zs[BK][BT + PAD];
+  __shared__ __align__(16) float ys[2][BK][BT + PAD];
+  __shared__ __align__(16) float zs[2][BK][BT + PAD];
   const int i0 = blockIdx.y * BT, j0 = blockIdx.x * BT;
   const int ty = threadIdx.x / 16;  // rows i0 + ty + 16*q
   const int tx = threadIdx.x % 16;  // cols j0 + tx + 16*c
@@ -71,23 +86,38 @@ retrieval_ranks_kernel(const float* __restrict__ y, const float* __restrict__ z,
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[q][c] = 0.f;
 
+  float4 yv[SLOTS], zv[SLOTS];
+  fetch<VEC>(yv, y, i0, B, D, 0);
+  fetch<VEC>(zv, z, j0, B, D, 0);
+  stash(ys[0], yv);
+  stash(zs[0], zv);
+  __syncthreads();
+  int cur = 0;
   for (long long k0 = 0; k0 < D; k0 += BK) {
-    load_chunk<VEC>(ys, y, i0, B, D, k0);
-    load_chunk<VEC>(zs, z, j0, B, D, k0);
-    __syncthreads();
+    const bool more = k0 + BK < D;
+    if (more) {  // in flight while this chunk is multiplied
+      fetch<VEC>(yv, y, i0, B, D, k0 + BK);
+      fetch<VEC>(zv, z, j0, B, D, k0 + BK);
+    }
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       float a[8], b[8];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) a[q] = ys[kk][ty + 16 * q];
+      for (int q = 0; q < 8; ++q) a[q] = ys[cur][kk][ty + 16 * q];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) b[c] = zs[kk][tx + 16 * c];
+      for (int c = 0; c < 8; ++c) b[c] = zs[cur][kk][tx + 16 * c];
 #pragma unroll
       for (int q = 0; q < 8; ++q)
 #pragma unroll
         for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(a[q], b[c], acc[q][c]);
     }
+    if (more) {
+      // the other stage was last read before the previous barrier
+      stash(ys[cur ^ 1], yv);
+      stash(zs[cur ^ 1], zv);
+    }
     __syncthreads();
+    cur ^= 1;
   }
 
 #pragma unroll
