@@ -67,11 +67,11 @@ class TorchBatchNorm(nn.Module):
     running ones move by momentum 0.1 towards the mean and the unbiased
     variance (n = B·T), in place."""
 
-    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
-                 compute_dtype=torch.float32):
+    momentum = 0.1
+
+    def __init__(self, features: int, eps: float = 1e-5, compute_dtype=torch.float32):
         super().__init__()
         self.eps = eps
-        self.momentum = momentum
         self.compute_dtype = compute_dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -176,22 +176,21 @@ def fourier_bases(loc: np.ndarray, K: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.cos(phi), np.sin(phi)
 
 
-def dropout_mask_at(loc, center_idx: int, d_drop: float, dtype=torch.float32) -> torch.Tensor:
-    """(C,) mask: 0 for every sensor within Euclidean distance ``d_drop`` of
-    sensor ``center_idx``, 1 elsewhere [ref: models.py:77-84]."""
+def dropout_mask_at(loc, center_idx: int, d_drop: float) -> torch.Tensor:
+    """(C,) f32 mask: 0 for every sensor within Euclidean distance ``d_drop``
+    of sensor ``center_idx``, 1 elsewhere [ref: models.py:77-84]."""
     loc = torch.as_tensor(np.asarray(loc, np.float32))
     distances = torch.linalg.vector_norm(loc - loc[int(center_idx)], dim=-1)
-    return torch.where(distances < d_drop, 0.0, 1.0).to(dtype)
+    return torch.where(distances < d_drop, 0.0, 1.0)
 
 
-def spatial_dropout_mask(generator: Optional[torch.Generator], loc, d_drop: float,
-                         dtype=torch.float32) -> torch.Tensor:
+def spatial_dropout_mask(generator: Optional[torch.Generator], loc, d_drop: float) -> torch.Tensor:
     """Train-time spatial dropout: one random centre sensor for the whole
     batch, drawn from ``generator`` (a CPU generator; None takes torch's
     default). Returns the (C,) mask on the CPU. JAX draws its centre from a
     threefry key, so the two streams differ; tests hand the port JAX's mask."""
     center = torch.randint(0, len(loc), (), generator=generator)
-    return dropout_mask_at(loc, int(center), d_drop, dtype)
+    return dropout_mask_at(loc, int(center), d_drop)
 
 
 class SpatialAttention(nn.Module):

@@ -67,7 +67,7 @@ def retrieval_ranks(Z: torch.Tensor, Y: torch.Tensor, eps: float = 1e-8) -> torc
     """Per-row rank of the diagonal in the cosine similarity of audio rows Y
     against brain rows Z (both (B, ...), any float dtype, cast to f32).
     Returns (B,) int32."""
-    if Z.shape[0] != Y.shape[0] or Z[0].numel() != Y[0].numel():
+    if Z.shape[0] != Y.shape[0] or Z.numel() != Y.numel():
         raise ValueError(f"retrieval_ranks needs Z and Y of one row count and row size, got "
                          f"{tuple(Z.shape)}, {tuple(Y.shape)}")
     if Z.is_cuda:
