@@ -20,7 +20,8 @@
 //     two-stage ring in shared memory: a (64 + 2d) x 64 window of x and a
 //     64 x 64 chunk of g, copied with cp.async (16-byte pieces where the
 //     channel count allows, 4- or 2-byte ones otherwise) while the previous
-//     chunk is multiplied; its 8 warps run nvcuda::wmma 16x16x16 with f32
+//     chunk is multiplied; its 4 warps each own a 32 x 32 piece of the tile
+//     for all three taps and run nvcuda::wmma 16x16x16 with f32
 //     accumulation. xT is the A operand, so x's window is loaded as a
 //     col-major A fragment; tap j starts j*d rows further down the window.
 //   * f32: 32-row chunks staged synchronously, 4 x 4 outputs x 3 taps a
@@ -42,7 +43,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // f32 path and the reduction
+constexpr int THREADS_B = 128;  // bf16 path: 4 warps of 32 x 32 outputs
 constexpr int TI = 64;        // input channels per block
 constexpr int TO = 64;        // output channels per block
 constexpr int TK = 32;        // f32 path: time rows per chunk
@@ -79,7 +81,7 @@ template <int VEC>
 __device__ __forceinline__ void issue_rows(bf16* dst, const bf16* __restrict__ src, int b, int Tlen, int C,
                                            int t_first, int rows, int c0) {
   constexpr int NV = TI / VEC;
-  for (int i = threadIdx.x; i < rows * NV; i += THREADS) {
+  for (int i = threadIdx.x; i < rows * NV; i += THREADS_B) {
     const int r = i / NV, v = i % NV, t = t_first + r, ch = c0 + v * VEC;
     const bool ok = t >= 0 && t < Tlen && ch < C;
     const bf16* from = ok ? src + ((size_t)b * Tlen + t) * C + ch : src;
@@ -93,7 +95,7 @@ __device__ __forceinline__ void issue_rows(bf16* dst, const bf16* __restrict__ s
 }
 
 template <int VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS_B)
 tap_conv_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, float* __restrict__ part,
                         Geo geo) {
   using namespace nvcuda;
@@ -103,15 +105,17 @@ tap_conv_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, 
   bf16* ring = reinterpret_cast<bf16*>(smem);
   const int co0 = blockIdx.x * TO, ci0 = blockIdx.y * TI, s = blockIdx.z;
   const int warp = threadIdx.x / 32;
-  const int fi = warp / 2;          // this warp's 16-channel slice of the ci tile
-  const int fo = (warp % 2) * 2;    // and its two 16-channel slices of the co tile
+  const int fi = (warp / 2) * 2;    // this warp's two 16-channel slices of the ci tile
+  const int fo = (warp % 2) * 2;    // and of the co tile
   const bool shifted = geo.d < geo.T;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[3][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[3][2][2];
 #pragma unroll
   for (int j = 0; j < 3; ++j)
 #pragma unroll
-    for (int f = 0; f < 2; ++f) wmma::fill_fragment(acc[j][f], 0.f);
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int f = 0; f < 2; ++f) wmma::fill_fragment(acc[j][q][f], 0.f);
 
   int b0, b1;
   split_rows(geo, s, b0, b1);
@@ -143,21 +147,26 @@ tap_conv_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, 
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         if (j != 1 && !shifted) continue;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> xa;
-        wmma::load_matrix_sync(xa, xs + (kk + j * geo.dd) * LD + fi * 16, LD);
 #pragma unroll
-        for (int f = 0; f < 2; ++f) wmma::mma_sync(acc[j][f], xa, gb[f], acc[j][f]);
+        for (int q = 0; q < 2; ++q) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> xa;
+          wmma::load_matrix_sync(xa, xs + (kk + j * geo.dd) * LD + (fi + q) * 16, LD);
+#pragma unroll
+          for (int f = 0; f < 2; ++f) wmma::mma_sync(acc[j][q][f], xa, gb[f], acc[j][q][f]);
+        }
       }
     }
     __syncthreads();
   }
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    float* pj = part + ((size_t)(s * 3 + j) * geo.cin_pad + ci0 + fi * 16) * geo.cout_pad + co0;
+  for (int j = 0; j < 3; ++j)
 #pragma unroll
-    for (int f = 0; f < 2; ++f)
-      wmma::store_matrix_sync(pj + (fo + f) * 16, acc[j][f], geo.cout_pad, wmma::mem_row_major);
-  }
+    for (int q = 0; q < 2; ++q) {
+      float* pj = part + ((size_t)(s * 3 + j) * geo.cin_pad + ci0 + (fi + q) * 16) * geo.cout_pad + co0;
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+        wmma::store_matrix_sync(pj + (fo + f) * 16, acc[j][q][f], geo.cout_pad, wmma::mem_row_major);
+    }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -244,13 +253,13 @@ Geo geometry(int B, int Tlen, int Cin, int Cout, int d, int nsplit) {
 
 // the dW kernel (given) on the grid of geo, then the fixed-order reduction
 template <typename T>
-int launch(void (*kernel)(const T*, const T*, float*, Geo), size_t smem, const void* x, const void* g,
-           void* part, void* out, const Geo& geo, void* stream) {
+int launch(void (*kernel)(const T*, const T*, float*, Geo), int threads, size_t smem, const void* x,
+           const void* g, void* part, void* out, const Geo& geo, void* stream) {
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(geo.cout_pad / TO, geo.cin_pad / TI, geo.nsplit);
-  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>((const T*)x, (const T*)g, (float*)part, geo);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>((const T*)x, (const T*)g, (float*)part, geo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int Cin = geo.Cin, Cout = geo.Cout;
@@ -270,15 +279,15 @@ extern "C" int tap_conv_dw_bf16(const void* x, const void* g, void* part, void* 
   const bool a16 = (uintptr_t)x % 16 == 0 && (uintptr_t)g % 16 == 0;
   const bool a4 = (uintptr_t)x % 4 == 0 && (uintptr_t)g % 4 == 0;
   if (Cin % 8 == 0 && Cout % 8 == 0 && a16)
-    return launch<bf16>(tap_conv_dw_bf16_kernel<8>, smem, x, g, part, out, geo, stream);
+    return launch<bf16>(tap_conv_dw_bf16_kernel<8>, THREADS_B, smem, x, g, part, out, geo, stream);
   if (Cin % 2 == 0 && Cout % 2 == 0 && a4)
-    return launch<bf16>(tap_conv_dw_bf16_kernel<2>, smem, x, g, part, out, geo, stream);
-  return launch<bf16>(tap_conv_dw_bf16_kernel<1>, smem, x, g, part, out, geo, stream);
+    return launch<bf16>(tap_conv_dw_bf16_kernel<2>, THREADS_B, smem, x, g, part, out, geo, stream);
+  return launch<bf16>(tap_conv_dw_bf16_kernel<1>, THREADS_B, smem, x, g, part, out, geo, stream);
 }
 
 extern "C" int tap_conv_dw_f32(const void* x, const void* g, void* part, void* out, int B, int Tlen, int Cin,
                                int Cout, int d, int nsplit, void* stream) {
   const Geo geo = geometry(B, Tlen, Cin, Cout, d, nsplit);
   const size_t smem = (size_t)(TK + 2 * geo.dd + TK) * LDF * sizeof(float);
-  return launch<float>(tap_conv_dw_f32_kernel, smem, x, g, part, out, geo, stream);
+  return launch<float>(tap_conv_dw_f32_kernel, THREADS, smem, x, g, part, out, geo, stream);
 }

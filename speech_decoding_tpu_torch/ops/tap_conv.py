@@ -44,10 +44,10 @@ def tap_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, dilation: int) -> torch.
 
 
 def _splits(B: int, Cin: int, Cout: int, device: torch.device) -> int:
-    """Batch-row splits: about two blocks per SM over the whole grid."""
+    """Batch-row splits: about three blocks per SM over the whole grid."""
     tiles = math.ceil(Cin / _TILE) * math.ceil(Cout / _TILE)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(B, math.ceil(2 * sms / tiles)))
+    return max(1, min(B, math.ceil(3 * sms / tiles)))
 
 
 def _launch(x: torch.Tensor, g: torch.Tensor, d: int) -> torch.Tensor:
