@@ -79,10 +79,6 @@ class TrainState:
     optimizer: Union[torch.optim.Optimizer, MultiSteps]
 
     @property
-    def temp(self) -> torch.Tensor:
-        return self.clip.temp
-
-    @property
     def device(self) -> torch.device:
         return self.clip.temp.device
 

@@ -315,6 +315,6 @@ def test_create_train_state_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_train_state(enc)
     st = create_train_state(enc, device="cpu")
-    assert st.step == 0 and st.device.type == "cpu" and float(st.temp.detach()[0]) == pytest.approx(5.1)
+    assert st.step == 0 and st.device.type == "cpu" and float(st.clip.temp.detach()[0]) == pytest.approx(5.1)
     n = sum(len(g["params"]) for g in st.optimizer.param_groups)
     assert n == len(list(enc.parameters())) + 1  # the temperature trains too
