@@ -78,7 +78,7 @@ __device__ __forceinline__ void split_rows(const Geo& g, int s, int& b0, int& b1
 // C % 8 == 0 and a 16-byte aligned src, 2 (4 bytes) C % 2 == 0; 1 stores
 // synchronously.
 template <int VEC>
-__device__ __forceinline__ void issue_rows(bf16* dst, const bf16* __restrict__ src, int b, int Tlen, int C,
+__device__ __forceinline__ void copy_rows_async(bf16* dst, const bf16* __restrict__ src, int b, int Tlen, int C,
                                            int t_first, int rows, int c0) {
   constexpr int NV = TI / VEC;
   for (int i = threadIdx.x; i < rows * NV; i += THREADS_B) {
@@ -121,17 +121,17 @@ tap_conv_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g, 
   split_rows(geo, s, b0, b1);
   const int per_rec = (geo.T + TKB - 1) / TKB;
   const int chunks = (b1 - b0) * per_rec;
-  auto issue = [&](int c) {
+  auto start_copy = [&](int c) {
     const int b = b0 + c / per_rec, t0 = (c % per_rec) * TKB;
     bf16* xs = ring + (size_t)(c & 1) * stage;
-    issue_rows<VEC>(xs, x, b, geo.T, geo.Cin, t0 - geo.dd, win, ci0);
-    issue_rows<VEC>(xs + (size_t)win * LD, g, b, geo.T, geo.Cout, t0, TKB, co0);
+    copy_rows_async<VEC>(xs, x, b, geo.T, geo.Cin, t0 - geo.dd, win, ci0);
+    copy_rows_async<VEC>(xs + (size_t)win * LD, g, b, geo.T, geo.Cout, t0, TKB, co0);
     __pipeline_commit();
   };
-  if (chunks > 0) issue(0);
+  if (chunks > 0) start_copy(0);
   for (int c = 0; c < chunks; ++c) {
     if (c + 1 < chunks) {
-      issue(c + 1);  // the other stage: its last reader passed the barrier at the end of c - 1
+      start_copy(c + 1);  // the other stage: its last reader passed the barrier at the end of c - 1
       __pipeline_wait_prior(1);
     } else {
       __pipeline_wait_prior(0);
