@@ -30,8 +30,8 @@ What it does, in order (one JSON object per line on stdout):
   6. the main path: ``SpeechDecoder`` with a 512-row f32 bank, then an int8
      bank, behind ``DecoderServer`` on an ephemeral port; 12 + 8 concurrent
      ``/decode`` requests of 1-16 rows each must equal a direct
-     ``decoder.decode`` of the same rows. Every launch counter is set to 0
-     just before and read just after; both kernels must have launched;
+     ``decoder.decode`` of the same rows. All four launch counters are set
+     to 0 just before and read just after; K1 and K4 must have launched;
   7. timings with CUDA events (kernel, plain version, one PyTorch call where
      one exists, the bound for this card), the fused vs module encode with
      the input on the card, retrieval against each bank, and one whole
@@ -46,10 +46,13 @@ What it does, in order (one JSON object per line on stdout):
      steps (CUDA events and host clock) with finite losses; launches per
      step must be K1 2 (forward, dX) and K2 15;
   10. the third main path, eval: ``training.make_chunked_eval`` over an
-     assumed test set of 2048 segments (chunks of 256) after that training;
-     K3 must launch; timed;
+     assumed test set of 2048 segments after that training, in chunks of the
+     config's ``tpu.eval_chunk_size`` as the trainer takes them; launches
+     must be K1 one per chunk and K3 one; timed;
   11. timings of K1's backward dX, K2 (each of the 15 launches of a step and
      their sum) and K3 at B=2048: kernel, plain, library yardstick, bound;
+     K3 and its yardstick with and without the preparation (cast, norms,
+     diagonal);
   12. the ``kernels`` summary line (K1, K4, K2, K3), the card line again, and
      last ``{"ok": true, "device": {...}}``.
 
@@ -119,8 +122,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, got, want, atol: float, rtol: float) -> float:
-    """Elementwise |got - want| <= atol + rtol·|want| (in f32); raises otherwise."""
+def compare(name: str, got, want, atol: float, rtol: float, show: bool = True) -> float:
+    """Elementwise |got - want| <= atol + rtol·|want| (in f32); raises
+    otherwise. Prints a ``check`` line unless ``show`` is false; returns max |Δ|."""
     import torch
 
     torch.cuda.synchronize()
@@ -130,25 +134,11 @@ def compare(name: str, got, want, atol: float, rtol: float) -> float:
     err = (g - w).abs()
     worst = float((err - rtol * w.abs()).max())
     max_abs = float(err.max())
-    emit(check=name, max_abs_err=max_abs, max_abs_ref=float(w.abs().max()), atol=atol, rtol=rtol)
+    if show:
+        emit(check=name, max_abs_err=max_abs, max_abs_ref=float(w.abs().max()), atol=atol, rtol=rtol)
     if worst > atol:
         raise AssertionError(f"{name}: max |got - want| - rtol·|want| = {worst} > {atol}")
     return max_abs
-
-
-def near_tie_rows(Z, Y, tol: float = 1e-6) -> set:
-    """Rows whose plain similarity has an off-diagonal entry within ``tol``
-    of the diagonal: there another summation order may flip a compare."""
-    import torch
-
-    n = Z.shape[0]
-    y, z = Y.reshape(n, -1).float(), Z.reshape(n, -1).float()
-    ny, nz = torch.linalg.vector_norm(y, dim=-1), torch.linalg.vector_norm(z, dim=-1)
-    sim = (y @ z.T) / torch.clamp_min(ny[:, None] * nz[None, :], 1e-8)
-    diag = torch.linalg.vecdot(y, z) / torch.clamp_min(ny * nz, 1e-8)
-    close = (sim - diag[:, None]).abs() < tol
-    close.fill_diagonal_(False)
-    return set(torch.nonzero(close.any(dim=1)).flatten().tolist())
 
 
 def flagship_convs(D1: int, D2: int, dilations):
@@ -163,17 +153,6 @@ def flagship_convs(D1: int, D2: int, dilations):
 # the collate of bench.py's build_flagship_step: precomputed scale stats, channels-last
 FLAGSHIP_COLLATE = {"baseline_len_samp": 60, "clamp_lim": 20.0, "clamp": True, "precomputed": True,
                     "channels_last": True}
-
-
-def compare_quiet(name: str, got, want, atol: float, rtol: float) -> float:
-    """``compare`` without the line: raises on a mismatch, returns max |Δ|."""
-    import torch
-
-    g, w = got.detach().float(), want.detach().float()
-    err = (g - w).abs()
-    if g.shape != w.shape or not bool(torch.isfinite(g).all()) or float((err - rtol * w.abs()).max()) > atol:
-        raise AssertionError(f"{name}: off by more than {atol} + {rtol}·|want|")
-    return float(err.max())
 
 
 def random_bn_stats(encoder, gen) -> None:
@@ -210,12 +189,15 @@ def main() -> int:
         from speech_decoding_tpu_torch.ops.conv_block import (
             conv_block_fused, conv_block_plain, dilations, prepare_fused_stack,
         )
-        from speech_decoding_tpu_torch.ops.retrieval import retrieval_ranks, retrieval_ranks_plain
+        from speech_decoding_tpu_torch.ops import retrieval as k3_module
+        from speech_decoding_tpu_torch.ops.retrieval import near_tie_rows, retrieval_ranks, retrieval_ranks_plain
         from speech_decoding_tpu_torch.ops.scaling import window_scale_stats
         from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain
         from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw, tap_conv_dw_plain
         from speech_decoding_tpu_torch.serving import DecoderServer, decode_request
-        from speech_decoding_tpu_torch.training import create_train_state, make_chunked_eval, make_train_step
+        from speech_decoding_tpu_torch.training import (
+            create_train_state, make_chunked_eval, make_eval_step, make_train_step,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable here ({e})", file=sys.stderr)
         return 3
@@ -233,6 +215,17 @@ def main() -> int:
     t = time.perf_counter()
     libs = _build.build(["subject_matmul", "conv_block", "tap_conv_dw", "retrieval_ranks"])
     emit(phase="build", seconds=time.perf_counter() - t, libraries=[os.path.relpath(p, ROOT) for p in libs])
+
+    # every path's run sets all four launch counters to 0 just before and reads all four just after
+    counted = {"subject_matmul": subject_matmul, "conv_block_fused": conv_block_fused,
+               "tap_conv_dw": tap_conv_dw, "retrieval_ranks": retrieval_ranks}
+
+    def reset_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counted.items()}
 
     B, C, T, D1, D2, F, K, S = 64, 208, 360, 270, 320, 1024, 32, 27
     bf16, f32 = torch.bfloat16, torch.float32
@@ -397,7 +390,7 @@ def main() -> int:
     server = DecoderServer(decoder, segment_shape=(C, T), max_batch=B, max_wait_ms=20.0).start()
     answers = {}
     try:
-        subject_matmul.launches = conv_block_fused.launches = 0
+        reset_counts()
         t = time.perf_counter()
         for store, sizes in requests.items():
             decoder.set_bank(bank, store_dtype=store)
@@ -413,8 +406,8 @@ def main() -> int:
                 th.join(timeout=300)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t
-        launches = {"subject_matmul": subject_matmul.launches, "conv_block_fused": conv_block_fused.launches}
-        stats = {"dispatches": server.batcher.dispatches, "rows": server.batcher.rows}
+        launches = read_counts()
+        stats ={"dispatches": server.batcher.dispatches, "rows": server.batcher.rows}
     finally:
         server.shutdown()
     for key, (_, _, s_want, i_want) in want.items():
@@ -425,13 +418,13 @@ def main() -> int:
             raise AssertionError(f"request {key}: served answer differs from direct decode")
     emit(phase="serve", requests=len(answers), rows=stats["rows"], dispatches=stats["dispatches"],
          seconds=serve_s, launches=launches, bank_rows=512, bank_dtypes=list(requests))
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if launches["subject_matmul"] < 1 or launches["conv_block_fused"] < 1:
+        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
 
     # -- 7. timings at the serving shape (bf16, B=64) ---------------------------
-    subject_matmul.launches = conv_block_fused.launches = 0
+    reset_counts()
     decoder.decode(X, sidx, k=10)
-    per_decode = {"subject_matmul": subject_matmul.launches, "conv_block_fused": conv_block_fused.launches}
+    per_decode = read_counts()
     x, w, ids = k1_inputs(B, T, D1, D1, S, bf16)
     ids_host = ids.cpu()  # as serving and training pass them: checked on the host, no wait
     k1_ms = time_ms(lambda: subject_matmul(x, w, ids_host))
@@ -534,7 +527,7 @@ def main() -> int:
     stats_err = 0.0
     for name, got in gpu_st.encoder.named_buffers():
         if name.endswith(("mean", "var")):
-            stats_err = max(stats_err, compare_quiet(name, got.cpu(), cpu_bufs[name], 1e-5, 1e-4))
+            stats_err = max(stats_err, compare(name, got.cpu(), cpu_bufs[name], 1e-5, 1e-4, show=False))
     emit(check="train step f32 B=8 BN running stats, card vs CPU", max_abs_err=stats_err, atol=1e-5, rtol=1e-4,
          cpu_seconds=cpu_s, card_seconds_first_step=gpu_s)
     del pair, cpu_st, gpu_st
@@ -557,7 +550,7 @@ def main() -> int:
         losses.append(m["loss"])
     torch.cuda.synchronize()
     n_steps = 20
-    subject_matmul.launches = conv_block_fused.launches = tap_conv_dw.launches = retrieval_ranks.launches = 0
+    reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t = time.perf_counter()
     start.record()
@@ -568,8 +561,7 @@ def main() -> int:
     torch.cuda.synchronize()
     train_host_ms = (time.perf_counter() - t) / n_steps * 1e3
     train_ms = start.elapsed_time(end) / n_steps
-    train_launches = {"subject_matmul": subject_matmul.launches, "conv_block_fused": conv_block_fused.launches,
-                      "tap_conv_dw": tap_conv_dw.launches, "retrieval_ranks": retrieval_ranks.launches}
+    train_launches = read_counts()
     losses = torch.stack(losses).tolist()
     per_step = {k: v / n_steps for k, v in train_launches.items()}
     emit(phase="train", config="flagship: B=64 C=208 T=360 D1=270 D2=320 F=1024 K=32 S=27, bf16, "
@@ -611,21 +603,26 @@ def main() -> int:
     ebatch = {"X": Xe, "Y": torch.randn(NE, T, F, generator=gdev, device=dev),
               "subject_idxs": torch.from_numpy(rng.integers(0, S, size=NE).astype(np.int32)),
               "scale_stats": window_scale_stats(Xe.transpose(1, 2))}
-    evaluate = make_chunked_eval(collate=FLAGSHIP_COLLATE, chunk_size=256)
+    # the trainer's rule: chunks of tpu.eval_chunk_size when 0 < chunk < test set, else one eval step
+    chunk = int(cfg.select("tpu.eval_chunk_size"))
+    chunked = 0 < chunk < NE
+    evaluate = make_chunked_eval(collate=FLAGSHIP_COLLATE, chunk_size=chunk) if chunked else \
+        make_eval_step(collate=FLAGSHIP_COLLATE)
     torch.cuda.synchronize()
-    subject_matmul.launches = conv_block_fused.launches = tap_conv_dw.launches = retrieval_ranks.launches = 0
+    reset_counts()
     t = time.perf_counter()
     ev = {k: float(v) for k, v in evaluate(state, ebatch).items()}
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t
-    eval_launches = {"subject_matmul": subject_matmul.launches, "conv_block_fused": conv_block_fused.launches,
-                     "tap_conv_dw": tap_conv_dw.launches, "retrieval_ranks": retrieval_ranks.launches}
-    emit(phase="eval", segments=NE, test_set_size="assumed (2048 segments)", chunk=256, seconds_host_clock=eval_s,
-         launches=eval_launches, **ev)
+    eval_launches = read_counts()
+    forwards = -(-NE // chunk) if chunked else 1
+    emit(phase="eval", segments=NE, test_set_size="assumed (2048 segments)",
+         chunk=chunk if chunked else NE, chunk_from="tpu.eval_chunk_size", forwards=forwards,
+         seconds_host_clock=eval_s, launches=eval_launches, **ev)
     if not (np.isfinite(ev["loss"]) and 0 <= ev["top1"] <= ev["top10"] <= 1):
         raise AssertionError(f"eval metrics out of range: {ev}")
-    if eval_launches["retrieval_ranks"] < 1 or eval_launches["subject_matmul"] != NE // 256:
-        raise AssertionError(f"eval launches: {eval_launches}")
+    if eval_launches != {"subject_matmul": forwards, "conv_block_fused": 0, "tap_conv_dw": 0, "retrieval_ranks": 1}:
+        raise AssertionError(f"eval launches: {eval_launches}, expected K1 {forwards} and K3 1")
     del ebatch, Xe
 
     # -- 11. timings of the train and eval kernels ---------------------------
@@ -668,33 +665,44 @@ def main() -> int:
          launches_per_train_step=per_step["tap_conv_dw"])
     del xs, gs, taps, xp
 
+    # kernel_ms and library_ms both include the preparation (Z's cast to
+    # f32, the norms, the diagonal); the *_alone times take it out of both
     Z, Y = k3_inputs(NE, F * T)
+    eps = 1e-8
+
+    def k3_library(prepared):
+        y, z, ny, nz, diag = prepared
+        return ((torch.matmul(y, z.T) / torch.clamp_min(ny[:, None] * nz[None, :], eps)) > diag[:, None]).sum(1)
+
     k3_ms = time_ms(lambda: retrieval_ranks(Z, Y), reps=3, warmup=1)
     k3_plain = time_ms(lambda: retrieval_ranks_plain(Z, Y), reps=3, warmup=1)
-    y, z = Y.float(), Z.float()
-    ny, nz = torch.linalg.vector_norm(y, dim=-1), torch.linalg.vector_norm(z, dim=-1)
-    den = torch.clamp_min(ny[:, None] * nz[None, :], 1e-8)
-    diag = torch.linalg.vecdot(y, z) / torch.clamp_min(ny * nz, 1e-8)
-    k3_lib = time_ms(lambda: ((torch.matmul(y, z.T) / den) > diag[:, None]).sum(dim=1), reps=3, warmup=1)
+    k3_lib = time_ms(lambda: k3_library(k3_module._prepare(Z, Y, eps)), reps=3, warmup=1)
+    prepared = k3_module._prepare(Z, Y, eps)
+    k3_prepare_ms = time_ms(lambda: k3_module._prepare(Z, Y, eps), reps=3, warmup=1)
+    k3_alone_ms = time_ms(lambda: k3_module._ranks_kernel(*prepared, eps), reps=3, warmup=1)
+    k3_lib_alone = time_ms(lambda: k3_library(prepared), reps=3, warmup=1)
     k3_bound, k3_by = bound_ms(2 * NE * NE * F * T, nbytes(Z, Y) + NE * 4, peaks, "f32")
     emit(timing="K3 retrieval_ranks", shape=[NE, F * T], dtype="Z bf16, Y f32 (cast to f32 inside)",
          kernel_ms=k3_ms, plain_ms=k3_plain, library_ms=k3_lib,
-         library="torch.matmul(y, z.T) in f32 plus the compare-and-count (norms outside the timing)",
-         bound_ms=k3_bound, bound_by=k3_by, launches_per_eval=eval_launches["retrieval_ranks"])
-    del Z, Y, y, z
+         library="torch.matmul(y, z.T) in f32 plus the compare-and-count, after the same preparation",
+         prepare_ms=k3_prepare_ms, kernel_alone_ms=k3_alone_ms, library_alone_ms=k3_lib_alone,
+         alone="on rows already cast to f32, with norms and diagonal: the O(B²·D) part only",
+         bound_ms=k3_bound, bound_by=k3_by, f32_peak_share=k3_bound / k3_ms,
+         launches_per_eval=eval_launches["retrieval_ranks"])
+    del Z, Y, prepared
 
     # -- 12. summary ---------------------------------------------------------
     paths = {"serve": launches, "train": train_launches, "eval": eval_launches}
 
     def launches_of(kernel):
-        return sum(p.get(kernel, 0) for p in paths.values())
+        return sum(p[kernel] for p in paths.values())
 
     emit(kernels=[
         {"name": "subject_matmul", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/subject_matmul.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/subject_conv.py:43",
          "launches": launches_of("subject_matmul"),
-         "launches_by_path": {k: p.get("subject_matmul", 0) for k, p in paths.items()},
+         "launches_by_path": {k: p["subject_matmul"] for k, p in paths.items()},
          "max_abs_err": max(k1_err.values()),
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": k1_lib, "backward_max_abs_err": max(k1b_err.values()), "backward_dx_ms": k1b_ms},
@@ -702,7 +710,7 @@ def main() -> int:
          "source": "speech_decoding_tpu_torch/csrc/conv_block.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/conv_block.py:92",
          "launches": launches_of("conv_block_fused"),
-         "launches_by_path": {k: p.get("conv_block_fused", 0) for k, p in paths.items()},
+         "launches_by_path": {k: p["conv_block_fused"] for k, p in paths.items()},
          "max_abs_err": max(k4_err.values()),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4_by,
          "library_ms": None},
@@ -710,7 +718,7 @@ def main() -> int:
          "source": "speech_decoding_tpu_torch/csrc/tap_conv_dw.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/tap_conv.py:144",
          "launches": launches_of("tap_conv_dw"),
-         "launches_by_path": {k: p.get("tap_conv_dw", 0) for k, p in paths.items()},
+         "launches_by_path": {k: p["tap_conv_dw"] for k, p in paths.items()},
          "max_abs_err": max(k2_err.values()),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2_by,
          "library_ms": k2["library_ms"]},
@@ -718,7 +726,7 @@ def main() -> int:
          "source": "speech_decoding_tpu_torch/csrc/retrieval_ranks.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/retrieval.py:90",
          "launches": launches_of("retrieval_ranks"),
-         "launches_by_path": {k: p.get("retrieval_ranks", 0) for k, p in paths.items()},
+         "launches_by_path": {k: p["retrieval_ranks"] for k, p in paths.items()},
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": k3_lib},

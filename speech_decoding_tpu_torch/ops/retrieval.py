@@ -33,28 +33,47 @@ def _prepare(Z: torch.Tensor, Y: torch.Tensor, eps: float):
     return y, z, ny, nz, diag
 
 
+def _similarity(Z: torch.Tensor, Y: torch.Tensor, eps: float):
+    """The whole (B, B) f32 similarity matrix and its precomputed diagonal."""
+    y, z, ny, nz, diag = _prepare(Z, Y, eps)
+    return (y @ z.T) / torch.clamp_min(ny[:, None] * nz[None, :], eps), diag
+
+
 def retrieval_ranks_plain(Z: torch.Tensor, Y: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Reference: the whole similarity matrix, compared with its precomputed
     diagonal; j = i never counts. Z, Y (B, ...) -> (B,) int32."""
-    y, z, ny, nz, diag = _prepare(Z, Y, eps)
-    sim = (y @ z.T) / torch.clamp_min(ny[:, None] * nz[None, :], eps)
+    sim, diag = _similarity(Z, Y, eps)
     greater = sim > diag[:, None]
     greater.fill_diagonal_(False)
     return greater.sum(dim=1).to(torch.int32)
 
 
+def near_tie_rows(Z: torch.Tensor, Y: torch.Tensor, tol: float = 1e-6, eps: float = 1e-8) -> set:
+    """Rows whose plain similarity has an off-diagonal entry within ``tol``
+    of the diagonal: there another summation order may flip a compare, so
+    the kernel's rank may differ from ``retrieval_ranks_plain``'s."""
+    sim, diag = _similarity(Z, Y, eps)
+    close = (sim - diag[:, None]).abs() < tol
+    close.fill_diagonal_(False)
+    return set(torch.nonzero(close.any(dim=1)).flatten().tolist())
+
+
 def _launch(Z: torch.Tensor, Y: torch.Tensor, eps: float) -> torch.Tensor:
     if not (Y.is_cuda and Y.device == Z.device):
         raise ValueError("retrieval_ranks: Z and Y must lie on one CUDA device")
-    y, z, ny, nz, diag = _prepare(Z, Y, eps)
+    return _ranks_kernel(*_prepare(Z, Y, eps), eps)
+
+
+def _ranks_kernel(y, z, ny, nz, diag, eps: float) -> torch.Tensor:
+    """The kernel alone, on ``_prepare``'s f32 rows, norms and diagonal."""
     B, D = y.shape
-    ranks = torch.zeros(B, dtype=torch.int32, device=Z.device)
+    ranks = torch.zeros(B, dtype=torch.int32, device=y.device)
     if B == 0:
         return ranks
     fn = _build.load("retrieval_ranks").retrieval_ranks_f32
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(Z.device):
+    with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(y.data_ptr(), z.data_ptr(), ny.data_ptr(), nz.data_ptr(), diag.data_ptr(), ranks.data_ptr(),
                  B, D, eps, stream)

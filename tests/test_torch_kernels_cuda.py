@@ -10,7 +10,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from speech_decoding_tpu_torch.ops import conv_block as tcb  # noqa: E402
-from speech_decoding_tpu_torch.ops.retrieval import retrieval_ranks, retrieval_ranks_plain  # noqa: E402
+from speech_decoding_tpu_torch.ops.retrieval import (  # noqa: E402
+    near_tie_rows, retrieval_ranks, retrieval_ranks_plain,
+)
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain  # noqa: E402
 from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw, tap_conv_dw_plain  # noqa: E402
 
@@ -233,20 +235,6 @@ def test_tap_conv_dw_rejects(dev):
         tap_conv_dw(x.transpose(0, 1).contiguous().transpose(0, 1), torch.zeros(2, 8, 4, device=dev), 1)
     with pytest.raises(ValueError, match="one CUDA device"):
         tap_conv_dw(x, torch.zeros(2, 8, 4), 1)
-
-
-def near_tie_rows(Z, Y, tol=1e-6):
-    """Rows whose plain similarity has an off-diagonal entry within ``tol``
-    of the diagonal: there a different summation order may flip a compare."""
-    B = Z.shape[0]
-    y = Y.reshape(B, -1).float()
-    z = Z.reshape(B, -1).float()
-    ny, nz = y.norm(dim=-1), z.norm(dim=-1)
-    sim = (y @ z.T) / torch.clamp_min(ny[:, None] * nz[None, :], 1e-8)
-    diag = (y * z).sum(-1) / torch.clamp_min(ny * nz, 1e-8)
-    close = (sim - diag[:, None]).abs() < tol
-    close.fill_diagonal_(False)
-    return set(torch.nonzero(close.any(dim=1)).flatten().tolist())
 
 
 @pytest.mark.parametrize("B,D", [(333, 1004), (333, 1001), (512, 36864), (1, 8), (130, 3)])

@@ -20,7 +20,9 @@ from speech_decoding_tpu.ops.pallas.subject_conv import subject_matmul as j_subj
 from speech_decoding_tpu.ops.pallas.tap_conv import tap_conv_dw as j_tap_conv_dw  # noqa: E402
 from speech_decoding_tpu_torch.ops import _build  # noqa: E402
 from speech_decoding_tpu_torch.ops import conv_block as tcb  # noqa: E402
-from speech_decoding_tpu_torch.ops.retrieval import retrieval_metrics_kernel, retrieval_ranks  # noqa: E402
+from speech_decoding_tpu_torch.ops.retrieval import (  # noqa: E402
+    near_tie_rows, retrieval_metrics_kernel, retrieval_ranks,
+)
 from speech_decoding_tpu_torch.ops.scaling import (  # noqa: E402
     apply_scale_stats,
     baseline_correct,
@@ -248,6 +250,16 @@ class TestRetrievalRanks:
     def test_diagonal_never_counts(self):
         Y = torch.ones(4, 3)
         assert retrieval_ranks(Y.clone(), Y).tolist() == [0, 0, 0, 0]  # all equal: nothing strictly greater
+
+    def test_near_tie_rows(self):
+        """Row 0's diagonal equals its column 1 (both cos 1/√2); rows 1 and 2
+        beat every other column by more than 0.29."""
+        e = torch.eye(3)
+        Y = torch.stack([e[0], e[2], e[1]])
+        Z = torch.stack([e[0] + e[1], e[0] + e[2], e[1]])
+        assert near_tie_rows(Z, Y) == {0}
+        assert near_tie_rows(Z, Y, tol=0.0) == set()  # |Δ| < 0 holds nowhere
+        assert near_tie_rows(Z, Y, tol=0.8) == {0, 1, 2}
 
     def test_cpu_call_launches_nothing_and_shape_errors(self):
         before = retrieval_ranks.launches
