@@ -6,8 +6,9 @@
 What it does, in order (one JSON object per line on stdout):
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. builds the four hand-written CUDA kernels from ``speech_decoding_tpu_torch/csrc``
-     with ``nvcc`` (one process per source, all started together) and times it;
+  2. builds the six hand-written CUDA kernel libraries from
+     ``speech_decoding_tpu_torch/csrc`` with ``nvcc`` (one process per source,
+     all started together) and times it;
   3. K1 ``subject_matmul`` against its plain version, f32 and bf16, at the
      serving shape (B=64, T=360, D1=270, S=27, mixed subject ids) and at a
      ragged small shape; an out-of-range id must raise. Then K1's backward
@@ -17,13 +18,23 @@ What it does, in order (one JSON object per line on stdout):
      for every (Cin, Cout, dilation) of the flagship's 15 k=3 convs, f32 at
      B=4, ragged shapes (Cin=270, T=13 with d=16 >= T, B=3); two runs on the
      same inputs must give the same bits;
-  3c. K3 ``retrieval_ranks`` against ``retrieval_ranks_plain`` at B=2048,
+  3c. K5 ``tap_conv`` against ``tap_conv_plain``: bf16 at B=64, T=360 for
+     every (Cin, Cout, dilation) of the flagship's 15 k=3 convs and their dx
+     forms (Cin and Cout swapped), f32 at B=4, a ragged B=3, T=37, Cin=270,
+     d=16; two runs must give the same bits;
+  3d. K3 ``retrieval_ranks`` against ``retrieval_ranks_plain`` at B=2048,
      D=F·T=368,640 and at a ragged B=333 with D off the tile; ranks must be
      equal except on rows whose plain similarity has an entry within 1e-6 of
      the diagonal (those rows are listed);
   4. K4 ``conv_block_fused`` against its plain version for blocks k=0..4 at
      (64, 360, D) in bf16, in f32 at a smaller batch, and at a ragged shape
      where every dilation reaches both edges of the recording;
+  4b. each of K6's six stages (``ops.conv_block_train`` F1, F2, F3, B1, B2,
+     B3) against its plain version: blocks k=0..4 at (64, 360, 320) in bf16,
+     f32 at B=4, ragged B=3, T=37 where d=16 reaches both edges (k=2, 4);
+     outputs, the (2, C) sums, dW and db; two runs must give the same bits;
+     then one block's ``conv_block_train`` forward and backward against the
+     module ``ConvBlock``'s train forward with autograd, in f32;
   5. the whole encode at full width (S=27, C=208, T=360, D1=270, D2=320,
      F=1024, K=32, random BatchNorm running statistics): the fused serving
      path (K1 + five K4 launches) against the module path, f32 and bf16;
@@ -38,23 +49,34 @@ What it does, in order (one JSON object per line on stdout):
      decode on the host clock; kernel launches per decode;
   8. one train step at full width in f32 (B=8), on the card and on the CPU
      from the same weights, batch and drop mask: loss, temperature, every
-     parameter gradient and the new BN running statistics must agree;
+     parameter gradient and the new BN running statistics must agree; once
+     through the module blocks and once with ``fused_blocks=True`` (K6);
   9. the second main path, training: the flagship train step as
      ``bench.py``'s ``build_flagship_step`` sets it up (B=64, bf16,
      channels-last, precomputed collate stats, ``conv_impl=gemm_pdw``)
      through ``training.make_train_step``: 3 warm-up steps, then 20 timed
      steps (CUDA events and host clock) with finite losses; launches per
-     step must be K1 2 (forward, dX) and K2 15;
+     step must be K1 2 (forward, dX) and K2 15, every other kernel 0;
+  9b. the fused train path: the same step with ``fused_blocks=True``, 3 + 20
+     steps; launches per step each K6 stage 5, K1 2, K2 15 (the dW of B1, B2
+     and B3), K5 0; a ``profile`` line; then the module and the fused step in
+     turns (module, fused, fused, module) in this call;
+  9c. the ``pallas_taps`` path: the flagship step with
+     ``tpu.conv_impl=pallas_taps``, 3 + 10 steps: launches per step K5 30 (15
+     forward, 15 dx), K2 15, K1 2;
   10. the third main path, eval: ``training.make_chunked_eval`` over an
      assumed test set of 2048 segments after that training, in chunks of the
      config's ``tpu.eval_chunk_size`` as the trainer takes them; launches
-     must be K1 one per chunk and K3 one; timed;
+     must be K1 one per chunk and K3 one; timed; then the same eval with the
+     ``pallas_taps`` encoder: K5 15 per chunk, K1 one per chunk, K3 one;
   11. timings of K1's backward dX, K2 (each of the 15 launches of a step and
-     their sum) and K3 at B=2048: kernel, plain, library yardstick, bound;
-     K3 and its yardstick with and without the preparation (cast, norms,
-     diagonal);
-  12. the ``kernels`` summary line (K1, K4, K2, K3), the card line again, and
-     last ``{"ok": true, "device": {...}}``.
+     their sum), K5 (the 30 launches of a ``pallas_taps`` step, against
+     ``F.conv1d``), K6 per block (F1+F2+F3 and B1+B2+B3 beside the module
+     ``ConvBlock`` forward and backward) and K3 at B=2048: kernel, plain,
+     library yardstick, bound; K3 and its yardstick with and without the
+     preparation (cast, norms, diagonal);
+  12. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6), the card line
+     again, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception exits non-zero without the last line; so does a
 machine without a CUDA device, or a directory without the port package.
@@ -175,6 +197,7 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
+    from torch.nn import functional as Fn
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -184,8 +207,9 @@ def main() -> int:
         from speech_decoding_tpu_torch.config import load_config
         from speech_decoding_tpu_torch.data.layout import ch_locations_2d
         from speech_decoding_tpu_torch.inference import SpeechDecoder
-        from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder, spatial_dropout_mask
+        from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder, ConvBlock, spatial_dropout_mask
         from speech_decoding_tpu_torch.ops import _build
+        from speech_decoding_tpu_torch.ops import conv_block_train as cbt
         from speech_decoding_tpu_torch.ops.conv_block import (
             conv_block_fused, conv_block_plain, dilations, prepare_fused_stack,
         )
@@ -193,7 +217,7 @@ def main() -> int:
         from speech_decoding_tpu_torch.ops.retrieval import near_tie_rows, retrieval_ranks, retrieval_ranks_plain
         from speech_decoding_tpu_torch.ops.scaling import window_scale_stats
         from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain
-        from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw, tap_conv_dw_plain
+        from speech_decoding_tpu_torch.ops.tap_conv import tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain
         from speech_decoding_tpu_torch.serving import DecoderServer, decode_request
         from speech_decoding_tpu_torch.training import (
             create_train_state, make_chunked_eval, make_eval_step, make_train_step,
@@ -213,12 +237,14 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t = time.perf_counter()
-    libs = _build.build(["subject_matmul", "conv_block", "tap_conv_dw", "retrieval_ranks"])
+    libs = _build.build(["subject_matmul", "conv_block", "tap_conv_dw", "retrieval_ranks", "tap_conv",
+                         "conv_block_train"])
     emit(phase="build", seconds=time.perf_counter() - t, libraries=[os.path.relpath(p, ROOT) for p in libs])
 
-    # every path's run sets all four launch counters to 0 just before and reads all four just after
+    # every path's run sets all launch counters to 0 just before and reads them all just after
     counted = {"subject_matmul": subject_matmul, "conv_block_fused": conv_block_fused,
-               "tap_conv_dw": tap_conv_dw, "retrieval_ranks": retrieval_ranks}
+               "tap_conv_dw": tap_conv_dw, "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv,
+               **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()}}
 
     def reset_counts():
         for fn in counted.values():
@@ -226,6 +252,13 @@ def main() -> int:
 
     def read_counts():
         return {name: fn.launches for name, fn in counted.items()}
+
+    def expect(**nonzero):
+        """Launch counts with every counter 0 except those named (K6's stages as F1=...)."""
+        want = dict.fromkeys(counted, 0)
+        for name, n in nonzero.items():
+            want[name if name in want else f"conv_block_train.{name}"] = n
+        return want
 
     B, C, T, D1, D2, F, K, S = 64, 208, 360, 270, 320, 1024, 32, 27
     bf16, f32 = torch.bfloat16, torch.float32
@@ -295,7 +328,36 @@ def main() -> int:
         emit(check=f"K2 {str(dtype)[6:]} deterministic", shape=[B, T, D2, 2 * D2], bitwise_equal=True)
     del xs, gs
 
-    # -- 3c. K3 vs plain -----------------------------------------------------
+    # -- 3c. K5 vs plain -----------------------------------------------------
+    # both sides sum the three taps in f32 and cast once: they differ by a
+    # flipped bf16 rounding (1e-2 of the largest entry + 1e-2 relative) at
+    # most; f32 by the order of the sums (1e-5)
+    k5_err = {}
+    for cin, cout, d in sorted(set(convs) | {(cout, cin, d) for cin, cout, d in convs}):  # forward and dx
+        x = torch.randn(B, T, cin, generator=gen).to(dev, bf16)
+        w = torch.randn(3, cin, cout, generator=gen).div((3 * cin) ** 0.5).to(dev, bf16)
+        want = tap_conv_plain(x, w, d)
+        name = f"K5 bf16 {(B, T, cin, cout)} d={d}"
+        k5_err[name] = compare(name, tap_conv(x, w, d), want, 1e-2 * float(want.abs().max()), 1e-2)
+    for dtype, rel, shapes in ((f32, 1e-5, [(4, T, D1, D2, 1), (4, T, D2, D2, 16), (4, T, D2, 2 * D2, 2),
+                                            (4, T, 2 * D2, D2, 2), (3, 37, 270, 40, 16)]),
+                               (bf16, 1e-2, [(3, 37, 270, 40, 16)])):
+        for b_, t_, cin, cout, d in shapes:
+            x = torch.randn(b_, t_, cin, generator=gen).to(dev, dtype)
+            w = torch.randn(3, cin, cout, generator=gen).div((3 * cin) ** 0.5).to(dev, dtype)
+            want = tap_conv_plain(x, w, d)
+            name = f"K5 {str(dtype)[6:]} {(b_, t_, cin, cout)} d={d}"
+            k5_err[name] = compare(name, tap_conv(x, w, d), want, rel * float(want.abs().max()), rel)
+    for dtype in (bf16, f32):
+        x = torch.randn(B, T, D2, generator=gen).to(dev, dtype)
+        w = torch.randn(3, D2, D2, generator=gen).div((3 * D2) ** 0.5).to(dev, dtype)
+        first, second = tap_conv(x, w, 4), tap_conv(x, w, 4)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"K5 {dtype}: two runs on the same inputs differ")
+        emit(check=f"K5 {str(dtype)[6:]} deterministic", shape=[B, T, D2, D2], bitwise_equal=True)
+
+    # -- 3d. K3 vs plain -----------------------------------------------------
     # Z = a·Y + noise with a = 2/sqrt(D): the diagonal cosine sits two
     # standard deviations above a random pair's, so ranks spread
     NE = 2048  # segments in the eval phase below: an assumed test-set size
@@ -358,6 +420,76 @@ def main() -> int:
             name = f"K4 k={k} f32 ragged {tuple(x.shape)}"
             compare(name, conv_block_fused(x, *staged_small[k], k=k),
                     conv_block_plain(x, *staged_small[k], k=k), 1e-4, 1e-4)
+
+    # -- 4b. K6 stages vs plain ------------------------------------------------
+    # activations in bf16: a flipped rounding (1e-2 + 1e-2 relative); f32
+    # results (sums, dW, db; f32 activations): 1e-3 (bf16 inputs) or 1e-4
+    # (f32 inputs) of the tensor's largest entry + the same relative, since
+    # a flipped bf16 rounding inside the stage moves a sum by a few ulps of
+    # one term
+    gk6 = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    k6_err = {}
+
+    def k6_check(tag, b_, t_, k, dtype):
+        rel = 1e-3 if dtype == bf16 else 1e-4
+        cin = D1 if k == 0 else D2
+        ins = cbt.stage_inputs(b_, t_, cin, D2, k, dtype, dev, gk6)
+        for st, fn in cbt.STAGES.items():
+            got, want = fn(*ins[st]), cbt.PLAIN[st](*ins[st])
+            got, want = (v if isinstance(v, tuple) else (v,) for v in (got, want))
+            errs = [compare(f"K6 {st} k={k} {tag} output {i}", a, b,
+                            *((1e-2, 1e-2) if a.dtype == bf16 else (rel * float(b.abs().max()), rel)), show=False)
+                    for i, (a, b) in enumerate(zip(got, want))]
+            name = f"K6 {st} k={k} {tag} {(b_, t_, cin, D2)}"
+            emit(check=name, outputs=len(got), max_abs_err=max(errs), bf16_outputs="atol 1e-2 rtol 1e-2",
+                 f32_outputs=f"{rel} of the largest entry, rtol {rel}")
+            k6_err[name] = max(errs)
+
+    for k in range(5):
+        k6_check("bf16", B, T, k, bf16)
+        k6_check("f32", 4, T, k, f32)
+    for k in (2, 4):  # d=16 against T=37: the halo reaches both edges of the recording
+        k6_check("f32 ragged", 3, 37, k, f32)
+        k6_check("bf16 ragged", 3, 37, k, bf16)
+    for dtype in (bf16, f32):
+        ins = cbt.stage_inputs(B, T, D2, D2, 2, dtype, dev, gk6)
+        for st, fn in cbt.STAGES.items():
+            first, second = (v if isinstance(v, tuple) else (v,) for v in (fn(*ins[st]), fn(*ins[st])))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"K6 {st} {dtype}: two runs on the same inputs differ")
+        emit(check=f"K6 {str(dtype)[6:]} all six stages deterministic", shape=[B, T, D2, D2], k=2,
+             bitwise_equal=True)
+    del ins
+
+    # one block: conv_block_train's forward and backward against the module
+    # ConvBlock's train forward with autograd, f32 on the card (the same
+    # function; sums in another order): out and each gradient at 1e-4 of its
+    # largest entry + 1e-5 of the largest gradient (the conv biases ahead of
+    # a batch-stat BN hold rounding noise on both sides)
+    for k in (0, 3):
+        cin = D1 if k == 0 else D2
+        blk = ConvBlock(k, cin, D2, generator=torch.Generator().manual_seed(args.seed + k)).to(dev)
+        x = torch.randn(8, T, cin, generator=gk6, device=dev).requires_grad_()
+        gy = torch.randn(8, T, D2, generator=gk6, device=dev)
+        params = [p.detach().clone().requires_grad_() for p in blk.parameters()]
+        want_out = blk(x, train=True)
+        want_out.backward(gy)
+        want = [x.grad] + [p.grad for p in blk.parameters()]
+        x2 = x.detach().clone().requires_grad_()
+        out, _ = cbt.conv_block_train(x2, *params, k)
+        out.backward(gy)
+        gmax = max(float(g.abs().max()) for g in want)
+        errs = [compare(f"K6 block k={k} out", out, want_out, 1e-4 * float(want_out.detach().abs().max()), 0.0,
+                        show=False)]
+        for name, a, b in zip(["x"] + [n for n, _ in blk.named_parameters()], [x2.grad] + [p.grad for p in params],
+                              want):
+            errs.append(compare(f"K6 block k={k} d{name}", a, b, 1e-4 * float(b.abs().max()) + 1e-5 * gmax, 0.0,
+                                show=False))
+        emit(check=f"K6 block k={k} f32 (8, {T}, {cin}): conv_block_train vs module ConvBlock, out and 11 grads",
+             max_abs_err=max(errs), largest_gradient=gmax,
+             bound="1e-4 * max|ref| of the tensor + 1e-5 * the largest gradient")
+    del blk, x, x2, gy, params, want
 
     # -- 5. whole encode: fused serving path vs module path --------------------
     X = torch.randn(B, C, T, generator=gen).numpy()
@@ -482,123 +614,159 @@ def main() -> int:
          decode_ms_int8_bank_host_clock=decode_ms, launches_per_decode=per_decode)
 
     # -- 8. one train step, card against CPU (full width, f32, B=8) ------------
-    # f32 on both sides; the sums run in another order (cuBLAS, K1's and K2's
-    # f32 paths against the CPU's BLAS), over up to 2880 rows and 320
+    # f32 on both sides; the sums run in another order (cuBLAS, the f32 paths
+    # of K1, K2 and K6 against the CPU's BLAS), over up to 2880 rows and 320
     # channels. Each gradient tensor is held at 1e-3 of its largest entry
     # plus 1e-4 of the model's largest gradient: the conv biases ahead of a
     # batch-stat BN have a zero gradient in exact arithmetic, so both sides
     # hold rounding noise there, which scales with the gradients around it.
+    # Once through the module blocks, once with fused_blocks=True (K6).
     nb = 8
     X8 = torch.randn(nb, T, C, generator=gen) * 10
     batch8 = {"X": X8, "Y": torch.randn(nb, T, F, generator=gen),
               "subject_idxs": torch.from_numpy(rng.integers(0, S, size=nb).astype(np.int32)),
               "scale_stats": window_scale_stats(X8.transpose(1, 2))}
     mask8 = spatial_dropout_mask(torch.Generator().manual_seed(args.seed), loc, 0.1)
-    pair = []
-    for device in ("cpu", "cuda"):
-        enc = BrainEncoder(compute_dtype=f32, channels_last_io=True,
-                           generator=torch.Generator().manual_seed(args.seed + 2), **enc_kw)
-        st = create_train_state(enc, device=device)
-        bt = {k: v if k == "subject_idxs" else v.to(st.device) for k, v in batch8.items()}
-        t = time.perf_counter()
-        st, m = make_train_step(collate=FLAGSHIP_COLLATE)(st, bt, drop_mask=mask8)
-        torch.cuda.synchronize()
-        pair.append((st, m, time.perf_counter() - t))
-    (cpu_st, cpu_m, cpu_s), (gpu_st, gpu_m, gpu_s) = pair
-    compare("train step f32 B=8 loss, card vs CPU", gpu_m["loss"].cpu(), cpu_m["loss"], 0.0, 1e-4)
-    compare("train step f32 B=8 temperature, card vs CPU", gpu_m["temp"].cpu(), cpu_m["temp"], 0.0, 1e-6)
-    cpu_grads = {n: p.grad for n, p in cpu_st.encoder.named_parameters()}
-    cpu_grads["clip.temp"] = cpu_st.clip.temp.grad
-    gpu_grads = {n: p.grad for n, p in gpu_st.encoder.named_parameters()}
-    gpu_grads["clip.temp"] = gpu_st.clip.temp.grad
-    gmax = max(float(g.abs().max()) for g in cpu_grads.values())
-    worst = (0.0, "")
-    for name, want in cpu_grads.items():
-        got = gpu_grads[name].cpu()
-        bound = 1e-3 * float(want.abs().max()) + 1e-4 * gmax
-        excess = float((got - want).abs().max()) / bound
-        worst = max(worst, (excess, name))
-        if not (bool(torch.isfinite(got).all()) and excess <= 1.0):
-            raise AssertionError(f"train step gradient {name}: card vs CPU off by {excess:.3g}x the bound")
-    emit(check="train step f32 B=8 gradients, card vs CPU", tensors=len(cpu_grads), largest_gradient=gmax,
-         worst_tensor=worst[1], worst_error_over_bound=worst[0],
-         bound="1e-3 * max|g| of the tensor + 1e-4 * max|g| of the model")
-    cpu_bufs = dict(cpu_st.encoder.named_buffers())
-    stats_err = 0.0
-    for name, got in gpu_st.encoder.named_buffers():
-        if name.endswith(("mean", "var")):
-            stats_err = max(stats_err, compare(name, got.cpu(), cpu_bufs[name], 1e-5, 1e-4, show=False))
-    emit(check="train step f32 B=8 BN running stats, card vs CPU", max_abs_err=stats_err, atol=1e-5, rtol=1e-4,
-         cpu_seconds=cpu_s, card_seconds_first_step=gpu_s)
-    del pair, cpu_st, gpu_st
+    for fused in (False, True):
+        label = "fused train step" if fused else "train step"
+        pair = []
+        for device in ("cpu", "cuda"):
+            enc = BrainEncoder(compute_dtype=f32, channels_last_io=True,
+                               generator=torch.Generator().manual_seed(args.seed + 2), **enc_kw)
+            st = create_train_state(enc, device=device)
+            bt = {k: v if k == "subject_idxs" else v.to(st.device) for k, v in batch8.items()}
+            t = time.perf_counter()
+            st, m = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused)(st, bt, drop_mask=mask8)
+            torch.cuda.synchronize()
+            pair.append((st, m, time.perf_counter() - t))
+        (cpu_st, cpu_m, cpu_s), (gpu_st, gpu_m, gpu_s) = pair
+        compare(f"{label} f32 B=8 loss, card vs CPU", gpu_m["loss"].cpu(), cpu_m["loss"], 0.0, 1e-4)
+        compare(f"{label} f32 B=8 temperature, card vs CPU", gpu_m["temp"].cpu(), cpu_m["temp"], 0.0, 1e-6)
+        cpu_grads = {n: p.grad for n, p in cpu_st.encoder.named_parameters()}
+        cpu_grads["clip.temp"] = cpu_st.clip.temp.grad
+        gpu_grads = {n: p.grad for n, p in gpu_st.encoder.named_parameters()}
+        gpu_grads["clip.temp"] = gpu_st.clip.temp.grad
+        gmax = max(float(g.abs().max()) for g in cpu_grads.values())
+        worst = (0.0, "")
+        for name, want in cpu_grads.items():
+            got = gpu_grads[name].cpu()
+            bound = 1e-3 * float(want.abs().max()) + 1e-4 * gmax
+            excess = float((got - want).abs().max()) / bound
+            worst = max(worst, (excess, name))
+            if not (bool(torch.isfinite(got).all()) and excess <= 1.0):
+                raise AssertionError(f"{label} gradient {name}: card vs CPU off by {excess:.3g}x the bound")
+        emit(check=f"{label} f32 B=8 gradients, card vs CPU", tensors=len(cpu_grads), largest_gradient=gmax,
+             worst_tensor=worst[1], worst_error_over_bound=worst[0],
+             bound="1e-3 * max|g| of the tensor + 1e-4 * max|g| of the model")
+        cpu_bufs = dict(cpu_st.encoder.named_buffers())
+        stats_err = 0.0
+        for name, got in gpu_st.encoder.named_buffers():
+            if name.endswith(("mean", "var")):
+                stats_err = max(stats_err, compare(name, got.cpu(), cpu_bufs[name], 1e-5, 1e-4, show=False))
+        emit(check=f"{label} f32 B=8 BN running stats, card vs CPU", max_abs_err=stats_err, atol=1e-5,
+             rtol=1e-4, cpu_seconds=cpu_s, card_seconds_first_step=gpu_s)
+        del pair, cpu_st, gpu_st
 
-    # -- 9. the train path: the flagship step --------------------------------
-    cfg = load_config(None, ["tpu.compute_dtype=bfloat16", "tpu.conv_impl=gemm_pdw", "tpu.channels_last_io=true"])
-    enc_t = BrainEncoder.from_config(cfg, loc, num_subjects=S, generator=torch.Generator().manual_seed(args.seed + 3))
-    if (enc_t.D1, enc_t.D2, enc_t.F, enc_t.K, enc_t.compute_dtype) != (D1, D2, F, K, bf16):
-        raise AssertionError("the config does not give the flagship encoder")
-    state = create_train_state(enc_t, device="cuda")
+    # -- 9. the train paths: the flagship step --------------------------------
     Xt = torch.randn(B, T, C, generator=gdev, device=dev) * 10
     batch = {"X": Xt, "Y": torch.randn(B, T, F, generator=gdev, device=dev),
              "subject_idxs": torch.from_numpy(rng.integers(0, S, size=B).astype(np.int32)),  # host ids
              "scale_stats": window_scale_stats(Xt.transpose(1, 2))}
-    step = make_train_step(collate=FLAGSHIP_COLLATE)
     drop_gen = torch.Generator().manual_seed(args.seed)
-    losses = []
-    for _ in range(3):  # warm-up: cuBLAS heuristics, first launches
-        state, m = step(state, batch, drop_gen)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    n_steps = 20
-    reset_counts()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t = time.perf_counter()
-    start.record()
-    for _ in range(n_steps):
-        state, m = step(state, batch, drop_gen)
-        losses.append(m["loss"])
-    end.record()
-    torch.cuda.synchronize()
-    train_host_ms = (time.perf_counter() - t) / n_steps * 1e3
-    train_ms = start.elapsed_time(end) / n_steps
-    train_launches = read_counts()
-    losses = torch.stack(losses).tolist()
-    per_step = {k: v / n_steps for k, v in train_launches.items()}
-    emit(phase="train", config="flagship: B=64 C=208 T=360 D1=270 D2=320 F=1024 K=32 S=27, bf16, "
-         "channels-last, precomputed collate stats, conv_impl=gemm_pdw", warmup_steps=3, steps=n_steps,
-         ms_per_step_cuda_events=train_ms, ms_per_step_host_clock=train_host_ms,
-         steps_per_s=1e3 / train_host_ms, launches=train_launches, launches_per_step=per_step,
-         loss_first=losses[0], loss_last=losses[-1], losses=losses, temp=float(m["temp"]))
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite train loss: {losses}")
-    # where the step's time goes: device time of every kernel over 3 more
-    # steps under torch.profiler (the profiler's own cost stretches the host
-    # side, so the idle share is taken against the unprofiled step time)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            state, m = step(state, batch, drop_gen)
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        # kernels and copies; a user annotation (Optimizer.step's range) spans kernels already counted
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    busy_ms = sum(us for _, us in by_name.values()) / 3e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    traced = bool(by_name)  # the profiler saw device activity (untried on this machine)
-    emit(profile="flagship train step, torch.profiler over 3 steps",
-         device_busy_ms_per_step=busy_ms if traced else "not measured",
-         device_idle_share=1 - busy_ms / train_ms if traced else "not measured",
-         device_ops_per_step=sum(n for n, _ in by_name.values()) / 3,
-         top_kernels_ms_per_step={name[:80]: us / 3e3 for name, (_, us) in top})
-    if per_step != {"subject_matmul": 2, "conv_block_fused": 0, "tap_conv_dw": 15, "retrieval_ranks": 0}:
-        raise AssertionError(f"launches per train step: {per_step}, expected K1 2 and K2 15")
+    def flagship_state(impl):
+        cfg_ = load_config(None, ["tpu.compute_dtype=bfloat16", f"tpu.conv_impl={impl}", "tpu.channels_last_io=true"])
+        enc_ = BrainEncoder.from_config(cfg_, loc, num_subjects=S,
+                                        generator=torch.Generator().manual_seed(args.seed + 3))
+        if (enc_.D1, enc_.D2, enc_.F, enc_.K, enc_.compute_dtype) != (D1, D2, F, K, bf16):
+            raise AssertionError("the config does not give the flagship encoder")
+        return cfg_, enc_, create_train_state(enc_, device="cuda")
 
-    # -- 10. the eval path: chunked eval over 2048 segments ----------------------
+    def run_steps(step, state, n):
+        """n steps timed by CUDA events and the host clock, all launch
+        counters set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        losses = []
+        t = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            state, m = step(state, batch, drop_gen)
+            losses.append(m["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        return m, losses, start.elapsed_time(end) / n, (time.perf_counter() - t) / n * 1e3, read_counts()
+
+    def profile_steps(step, state, ms, phase):
+        # where the step's time goes: device time of every kernel over 3 more
+        # steps under torch.profiler (the profiler's own cost stretches the
+        # host side, so the idle share is taken against the unprofiled step time)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step(state, batch, drop_gen)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            # kernels and copies; a user annotation (Optimizer.step's range) spans kernels already counted
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        busy_ms = sum(us for _, us in by_name.values()) / 3e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        traced = bool(by_name)  # the profiler saw device activity
+        emit(profile=f"{phase}: flagship train step, torch.profiler over 3 steps",
+             device_busy_ms_per_step=busy_ms if traced else "not measured",
+             device_idle_share=1 - busy_ms / ms if traced else "not measured",
+             device_ops_per_step=sum(n for n, _ in by_name.values()) / 3,
+             top_kernels_ms_per_step={name[:80]: us / 3e3 for name, (_, us) in top})
+
+    def train_path(phase, impl, fused, n_steps, expected, profiled):
+        cfg_, enc_, state_ = flagship_state(impl)
+        step_ = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused)
+        warm = []
+        for _ in range(3):  # warm-up: cuBLAS heuristics, first launches
+            state_, m = step_(state_, batch, drop_gen)
+            warm.append(m["loss"])
+        m, losses, ms, host_ms, launches = run_steps(step_, state_, n_steps)
+        losses = torch.stack(warm + losses).tolist()
+        per_step_ = {k: v / n_steps for k, v in launches.items()}
+        emit(phase=phase, config="flagship: B=64 C=208 T=360 D1=270 D2=320 F=1024 K=32 S=27, bf16, "
+             f"channels-last, precomputed collate stats, conv_impl={impl}" + (", fused_blocks" if fused else ""),
+             warmup_steps=3, steps=n_steps, ms_per_step_cuda_events=ms, ms_per_step_host_clock=host_ms,
+             steps_per_s=1e3 / host_ms, launches=launches, launches_per_step=per_step_,
+             loss_first=losses[0], loss_last=losses[-1], losses=losses, temp=float(m["temp"]))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite {phase} loss: {losses}")
+        if profiled:
+            profile_steps(step_, state_, ms, phase)
+        if per_step_ != expected:
+            raise AssertionError(f"launches per {phase} step: {per_step_}, expected {expected}")
+        return cfg_, enc_, step_, state_, launches, per_step_
+
+    cfg, enc_t, step, state, train_launches, per_step = train_path(
+        "train", "gemm_pdw", False, 20, expect(subject_matmul=2, tap_conv_dw=15), True)
+
+    # -- 9b. the fused train path (K6) ------------------------------------------
+    k6_step = dict(F1=5, F2=5, F3=5, B1=5, B2=5, B3=5)
+    _, _, fstep, fstate, fused_launches, fused_per_step = train_path(
+        "fused_train", "gemm_pdw", True, 20, expect(subject_matmul=2, tap_conv_dw=15, **k6_step), True)
+    # the module step and the fused step in turns, in this call
+    turns = {"module": [], "fused": []}
+    for name in ("module", "fused", "fused", "module"):
+        _, _, ms, host_ms, _ = run_steps(*((step, state) if name == "module" else (fstep, fstate)), 10)
+        turns[name].append({"cuda_events_ms": ms, "host_clock_ms": host_ms})
+    emit(timing="flagship train step: module blocks vs fused blocks (K6), turns of 10 steps", turns=turns,
+         module_ms_per_step=sum(x["cuda_events_ms"] for x in turns["module"]) / 2,
+         fused_ms_per_step=sum(x["cuda_events_ms"] for x in turns["fused"]) / 2)
+
+    # -- 9c. the pallas_taps train path (K5) ---------------------------------
+    cfg_taps, _, _, tstate, taps_launches, taps_per_step = train_path(
+        "taps_train", "pallas_taps", False, 10, expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30), False)
+
+    # -- 10. the eval paths: chunked eval over 2048 segments ----------------------
     Xe = torch.randn(NE, T, C, generator=gdev, device=dev) * 10
     ebatch = {"X": Xe, "Y": torch.randn(NE, T, F, generator=gdev, device=dev),
               "subject_idxs": torch.from_numpy(rng.integers(0, S, size=NE).astype(np.int32)),
@@ -606,23 +774,28 @@ def main() -> int:
     # the trainer's rule: chunks of tpu.eval_chunk_size when 0 < chunk < test set, else one eval step
     chunk = int(cfg.select("tpu.eval_chunk_size"))
     chunked = 0 < chunk < NE
-    evaluate = make_chunked_eval(collate=FLAGSHIP_COLLATE, chunk_size=chunk) if chunked else \
-        make_eval_step(collate=FLAGSHIP_COLLATE)
-    torch.cuda.synchronize()
-    reset_counts()
-    t = time.perf_counter()
-    ev = {k: float(v) for k, v in evaluate(state, ebatch).items()}
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t
-    eval_launches = read_counts()
     forwards = -(-NE // chunk) if chunked else 1
-    emit(phase="eval", segments=NE, test_set_size="assumed (2048 segments)",
-         chunk=chunk if chunked else NE, chunk_from="tpu.eval_chunk_size", forwards=forwards,
-         seconds_host_clock=eval_s, launches=eval_launches, **ev)
-    if not (np.isfinite(ev["loss"]) and 0 <= ev["top1"] <= ev["top10"] <= 1):
-        raise AssertionError(f"eval metrics out of range: {ev}")
-    if eval_launches != {"subject_matmul": forwards, "conv_block_fused": 0, "tap_conv_dw": 0, "retrieval_ranks": 1}:
-        raise AssertionError(f"eval launches: {eval_launches}, expected K1 {forwards} and K3 1")
+    eval_paths = {}
+    for phase, state_, more in (("eval", state, {}), ("taps_eval", tstate, {"tap_conv": 15 * forwards})):
+        evaluate = make_chunked_eval(collate=FLAGSHIP_COLLATE, chunk_size=chunk) if chunked else \
+            make_eval_step(collate=FLAGSHIP_COLLATE)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        ev = {k: float(v) for k, v in evaluate(state_, ebatch).items()}
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        eval_paths[phase] = read_counts()
+        emit(phase=phase, segments=NE, test_set_size="assumed (2048 segments)",
+             chunk=chunk if chunked else NE, chunk_from="tpu.eval_chunk_size", forwards=forwards,
+             conv_impl="pallas_taps" if more else "gemm_pdw", seconds_host_clock=eval_s,
+             launches=eval_paths[phase], **ev)
+        if not (np.isfinite(ev["loss"]) and 0 <= ev["top1"] <= ev["top10"] <= 1):
+            raise AssertionError(f"{phase} metrics out of range: {ev}")
+        want = expect(subject_matmul=forwards, retrieval_ranks=1, **more)
+        if eval_paths[phase] != want:
+            raise AssertionError(f"{phase} launches: {eval_paths[phase]}, expected {want}")
+    eval_launches = eval_paths["eval"]
     del ebatch, Xe
 
     # -- 11. timings of the train and eval kernels ---------------------------
@@ -665,6 +838,84 @@ def main() -> int:
          launches_per_train_step=per_step["tap_conv_dw"])
     del xs, gs, taps, xp
 
+    # K5: the 30 launches of a pallas_taps step (each conv forward and its
+    # dx), against F.conv1d on the (B, C, T) layout (transposes made outside
+    # the timing; cuDNN without TF32), which must compute the same function
+    k5 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    k5_per_conv, k5_lib_err = [], 0.0
+    for cin, cout, d in convs:
+        for form, ci, co in (("forward", cin, cout), ("dx", cout, cin)):
+            x = torch.randn(B, T, ci, generator=gdev, device=dev).to(bf16)
+            w = torch.randn(3, ci, co, generator=gdev, device=dev).div((3 * ci) ** 0.5).to(bf16)
+            xc, wc = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()  # (B, Cin, T), (Cout, Cin, 3)
+            want = tap_conv_plain(x, w, d)
+            lib_y = Fn.conv1d(xc, wc, dilation=d, padding=d).transpose(1, 2)
+            k5_lib_err = max(k5_lib_err, compare(f"F.conv1d d={d}", lib_y, want, 1e-2 * float(want.abs().max()),
+                                                 1e-2, show=False))
+            ms = time_ms(lambda: tap_conv(x, w, d), reps=10)
+            plain = time_ms(lambda: tap_conv_plain(x, w, d), reps=5)
+            lib = time_ms(lambda: Fn.conv1d(xc, wc, dilation=d, padding=d), reps=10)
+            flops = 2 * ci * co * B * (T + 2 * max(T - d, 0))  # the shifted taps see T-d valid rows
+            moved = nbytes(x, w) + B * T * co * 2
+            bnd, by = bound_ms(flops, moved, peaks, "bf16")
+            k5_per_conv.append({"form": form, "cin": ci, "cout": co, "d": d, "ms": ms, "plain_ms": plain,
+                                "library_ms": lib, "bound_ms": bnd, "bound_by": by})
+            for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bnd),
+                           ("flops", flops), ("bytes", moved)):
+                k5[key] += v
+    k5_by = bound_ms(k5["flops"], k5["bytes"], peaks, "bf16")[1]
+    emit(timing="K5 tap_conv, the 30 launches of one pallas_taps step (15 forward, 15 dx)", dtype="bf16", B=B, T=T,
+         kernel_ms=k5["ms"], plain_ms=k5["plain_ms"], library_ms=k5["library_ms"],
+         library="F.conv1d(x (B, C, T), w (Cout, Cin, 3), dilation=d, padding=d), cuDNN, no TF32",
+         library_vs_plain_max_abs_err=k5_lib_err, bound_ms=k5["bound_ms"], bound_by=k5_by,
+         tflop=k5["flops"] / 1e12, per_conv=k5_per_conv, launches_per_train_step=taps_per_step["tap_conv"])
+    del x, w, xc, wc, want, lib_y
+
+    # K6 per block: F1+F2+F3 and B1+B2+B3 (each stage with its reductions,
+    # the backward stages with their K2 launch), the plain stages, and the
+    # module ConvBlock's train forward and forward+backward on the same shapes
+    def conv_flops(ci, co, d):
+        return 2 * ci * co * B * (T + 2 * max(T - d, 0))
+
+    def tensors(v):
+        return [a for a in (v if isinstance(v, tuple) else (v,)) if torch.is_tensor(a)]
+
+    k6 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0, "module_ms": 0.0}
+    fwd, bwd = ("F1", "F2", "F3"), ("B1", "B2", "B3")
+    for k in range(5):
+        cin = D1 if k == 0 else D2
+        d0, d1 = dilations(k)
+        ins = cbt.stage_inputs(B, T, cin, D2, k, bf16, dev, gk6)
+        ms = {st: time_ms(lambda st=st: cbt.STAGES[st](*ins[st]), reps=10) for st in cbt.STAGES}
+        plain = {st: time_ms(lambda st=st: cbt.PLAIN[st](*ins[st]), reps=3) for st in cbt.STAGES}
+        flops = {"F1": conv_flops(cin, D2, d0), "F2": conv_flops(D2, D2, d1), "F3": conv_flops(D2, 2 * D2, 2),
+                 "B1": 3 * conv_flops(D2, 2 * D2, 2), "B2": 2 * conv_flops(D2, D2, d1),
+                 "B3": 2 * conv_flops(cin, D2, d0)}
+        moved = {st: nbytes(*tensors(ins[st]), *tensors(cbt.STAGES[st](*ins[st]))) for st in cbt.STAGES}
+        bounds = {st: bound_ms(flops[st], moved[st], peaks, "bf16") for st in cbt.STAGES}
+        blk = enc_t.conv_blocks[k]
+        xm = torch.randn(B, T, cin, generator=gdev, device=dev).to(bf16).requires_grad_()
+        gm = torch.randn(B, T, D2, generator=gdev, device=dev).to(bf16)
+        mod_f = time_ms(lambda: blk(xm, train=True), reps=10)
+        mod_fb = time_ms(lambda: blk(xm, train=True).backward(gm), reps=10)
+        emit(timing=f"K6 conv_block_train k={k}", shape=[B, T, cin, D2], dtype="bf16",
+             forward_ms=sum(ms[s] for s in fwd), backward_ms=sum(ms[s] for s in bwd), per_stage_ms=ms,
+             plain_forward_ms=sum(plain[s] for s in fwd), plain_backward_ms=sum(plain[s] for s in bwd),
+             bound_forward_ms=sum(bounds[s][0] for s in fwd), bound_backward_ms=sum(bounds[s][0] for s in bwd),
+             per_stage_bound={s: {"ms": b[0], "by": b[1], "gflop": flops[s] / 1e9, "mbytes": moved[s] / 1e6}
+                              for s, b in bounds.items()},
+             module_forward_ms=mod_f, module_forward_backward_ms=mod_fb,
+             module_backward_ms_by_subtraction=mod_fb - mod_f, library_ms=None,
+             library="none: no single PyTorch call computes a ConvBlock; the module ConvBlock is beside it")
+        k6["ms"] += sum(ms.values())
+        k6["plain_ms"] += sum(plain.values())
+        k6["bound_ms"] += sum(b[0] for b in bounds.values())
+        k6["flops"] += sum(flops.values())
+        k6["bytes"] += sum(moved.values())
+        k6["module_ms"] += mod_fb
+    k6_by = bound_ms(k6["flops"], k6["bytes"], peaks, "bf16")[1]
+    del ins, xm, gm
+
     # kernel_ms and library_ms both include the preparation (Z's cast to
     # f32, the norms, the diagonal); the *_alone times take it out of both
     Z, Y = k3_inputs(NE, F * T)
@@ -692,7 +943,8 @@ def main() -> int:
     del Z, Y, prepared
 
     # -- 12. summary ---------------------------------------------------------
-    paths = {"serve": launches, "train": train_launches, "eval": eval_launches}
+    paths = {"serve": launches, "train": train_launches, "eval": eval_launches, "fused_train": fused_launches,
+             "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"]}
 
     def launches_of(kernel):
         return sum(p[kernel] for p in paths.values())
@@ -730,6 +982,27 @@ def main() -> int:
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": k3_lib},
+        {"name": "tap_conv", "route": "cuda",
+         "source": "speech_decoding_tpu_torch/csrc/tap_conv.cu",
+         "header": "speech_decoding_tpu_torch/csrc/tap3.cuh",
+         "replaces": "speech_decoding_tpu/ops/pallas/tap_conv.py:69",
+         "launches": launches_of("tap_conv"),
+         "launches_by_path": {k: p["tap_conv"] for k, p in paths.items()},
+         "max_abs_err": max(k5_err.values()),
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5_by,
+         "library_ms": k5["library_ms"], "timed": "the 30 launches of one pallas_taps step"},
+        {"name": "conv_block_train", "route": "cuda",
+         "source": "speech_decoding_tpu_torch/csrc/conv_block_train.cu",
+         "header": "speech_decoding_tpu_torch/csrc/tap3.cuh",
+         "replaces": "speech_decoding_tpu/ops/pallas/conv_block_train.py:334",
+         "also_replaces": "speech_decoding_tpu/ops/pallas/conv_block_train.py:409",
+         "launches": sum(launches_of(f"conv_block_train.{st}") for st in cbt.STAGES),
+         "launches_by_path": {k: sum(p[f"conv_block_train.{st}"] for st in cbt.STAGES) for k, p in paths.items()},
+         "launches_by_stage": {st: launches_of(f"conv_block_train.{st}") for st in cbt.STAGES},
+         "max_abs_err": max(k6_err.values()),
+         "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6_by,
+         "library_ms": None, "module_blocks_ms": k6["module_ms"],
+         "timed": "the six stages of all five blocks, one step's forward and backward"},
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

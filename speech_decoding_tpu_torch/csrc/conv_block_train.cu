@@ -1,0 +1,298 @@
+// K6: the train-mode ConvBlock, three stages a direction, one per BatchNorm
+// sync point (the O(C) statistics math between them runs as PyTorch ops):
+//   F1: y0 = conv_d0(x) + b0 (+ x)                  -> y0 (dt); sums of y0, y0^2
+//   F2: h0 = GELU(BN0(y0)); y1 = conv_d1(h0) + b1 + h0 -> y1 (dt); sums
+//   F3: h1 = GELU(BN1(y1)); out = GLU(conv_2(h1) + b2) -> out (dt)
+//   B1: GLU and conv2 backward, GELU·BN1 input backward -> du1; dy2, h1 for dW2
+//   B2: BN1 backward -> dy1; conv1 backward + skip, GELU·BN0 backward -> du0
+//   B3: BN0 backward -> dy0; conv0 backward (+ skip) -> dx
+// with dt the compute dtype (f32 or bf16), f32 statistics, BN applied in dt,
+// exact GELU (erff here, where the Pallas kernels build erf from exp), f32
+// accumulation, and the rounding points of the Pallas bodies.
+//
+// Replaces the Pallas TPU kernels speech_decoding_tpu/ops/pallas/
+// conv_block_train.py (_fwd_impl: _f1_kernel, _f2_kernel, _f3_kernel;
+// _bwd_rule: _b1_kernel, _b2_kernel, _b3_kernel). Those keep four whole
+// recordings and every weight in VMEM and carry the BN sums, dW and db
+// across a sequential grid. Here every conv is the time-tile of tap3.cuh (a
+// halo of d, weights streamed through shared memory, the BN·GELU of F2, F3
+// and B1 applied as the input is staged, so h0 and h1 never cross device
+// memory in the forward), and every sum is a per-block f32 partial added in a
+// fixed order by tap3::reduce_parts: bitwise repeatable, no float atomics.
+//
+// Where a stage splits (each stage is one call of its wrapper):
+//   F1, F2: the conv with its epilogue, then the sums' reduction.
+//   F3: the conv (both GLU halves in one block) with its epilogue.
+//   B1: (a) recompute h1 and conv2 (dumping h1), the GLU backward in the
+//       epilogue -> dy2 (B, T, 2C) and db2's partials; (b) the wrapper takes
+//       dW2 = K2(h1, dy2, 2); (c) the transposed conv of dy2 -> du1 and the
+//       BN1 sums. Extra traffic against the Pallas body: h1 and dy2 written
+//       and read back (3 * B*T*C elements written, 5 read).
+//   B2: (a) a pointwise pass -> dy1 and h0 (for K2) and db1's partials; (b)
+//       dW1 = K2(h0, dy1, d1) in the wrapper; (c) the transposed conv of dy1
+//       + dy1 -> du0 and the BN0 sums. Extra: dy1 and h0, 2 written, 4 read.
+//   B3: (a) a pointwise pass -> dy0 and db0's partials; (b) dW0 = K2(x, dy0,
+//       d0); (c) the transposed conv of dy0 (+ dy0) -> dx. Extra: dy0, 1
+//       written, 2 read.
+//
+// What bounds it on an H100: operations. At B = 64, T = 360, C = 320 a block
+// with k >= 1 is 56.6 GFLOP forward (57 us at 989 TFLOP/s bf16) and 141.6
+// GFLOP backward, of which the K2 launches are 42.5.
+//
+// C interface (ctypes): pointers and the stream as void*; each entry returns
+// the first non-zero cudaError_t of its launches. `part` is f32 scratch of
+// B * ceil(T / 64) * 2 * C elements.
+
+#include "tap3.cuh"
+
+namespace {
+
+using tap3::bf16;
+using tap3::from_f;
+using tap3::rnd;
+using tap3::to_f;
+using tap3::TM;
+using tap3::TN;
+
+template <typename T>
+struct F1 {
+  static constexpr bool kStats = true;
+  const float* bias; const T* skip; T* y; int T_, C;
+  __device__ void operator()(int b, int t, int c, float v, float, float& s0, float& s1) const {
+    const size_t i = ((size_t)b * T_ + t) * C + c;
+    v += bias[c];
+    if (skip) v += to_f(skip[i]);
+    const T yc = from_f<T>(v);
+    y[i] = yc;
+    const float f = to_f(yc);
+    s0 += f;
+    s1 += f * f;
+  }
+};
+
+template <typename T>
+struct F2 {
+  static constexpr bool kStats = true;
+  const float* bias; const T* y0; const float* mi0; const float* gb0; T* y1; int T_, C;
+  __device__ void operator()(int b, int t, int c, float v, float, float& s0, float& s1) const {
+    const size_t i = ((size_t)b * T_ + t) * C + c;
+    const float h0 = tap3::BnGelu<T>{mi0, gb0, C}(to_f(y0[i]), c);
+    const T yc = from_f<T>(v + bias[c] + h0);
+    y1[i] = yc;
+    const float f = to_f(yc);
+    s0 += f;
+    s1 += f * f;
+  }
+};
+
+template <typename T>
+struct F3 {
+  static constexpr bool kStats = false;
+  const float* b2; T* out; int T_, C;
+  __device__ void operator()(int b, int t, int c, float a, float g, float&, float&) const {
+    a += b2[c];
+    g += b2[C + c];
+    out[((size_t)b * T_ + t) * C + c] = from_f<T>(rnd<T>(a) * rnd<T>(tap3::sigmoid(g)));
+  }
+};
+
+// GLU backward: dy2 = [dout * sig, dout * a * sig * (1 - sig)] in dt; sums for db2
+template <typename T>
+struct B1a {
+  static constexpr bool kStats = true;
+  const float* b2; const T* dout; T* dy2; int T_, C;
+  __device__ void operator()(int b, int t, int c, float a, float g, float& s0, float& s1) const {
+    a += b2[c];
+    g += b2[C + c];
+    const float sig = tap3::sigmoid(g), df = to_f(dout[((size_t)b * T_ + t) * C + c]);
+    const T da = from_f<T>(df * sig), db = from_f<T>(df * a * sig * (1.f - sig));
+    T* row = dy2 + ((size_t)b * T_ + t) * 2 * C;
+    row[c] = da;
+    row[C + c] = db;
+    s0 += to_f(da);
+    s1 += to_f(db);
+  }
+};
+
+// du = dt(dh * GELU'(u)), u and x̂ from BN applied in dt; sums of du and du·x̂
+template <typename T>
+struct GeluBnBwd {
+  static constexpr bool kStats = true;
+  const T* skip; const T* y; const float* mi; const float* gb; T* du; int T_, C;
+  __device__ void operator()(int b, int t, int c, float dh, float, float& s0, float& s1) const {
+    const size_t i = ((size_t)b * T_ + t) * C + c;
+    if (skip) dh += to_f(skip[i]);
+    float xhat, u;
+    tap3::bn_apply<T>(to_f(y[i]), c, mi, gb, C, xhat, u);
+    const T v = from_f<T>(dh * tap3::dgelu(u));
+    du[i] = v;
+    s0 += to_f(v);
+    s1 += to_f(v) * xhat;
+  }
+};
+
+template <typename T>
+struct B3c {
+  static constexpr bool kStats = false;
+  const T* skip; T* dx; int T_, C;
+  __device__ void operator()(int b, int t, int c, float v, float, float&, float&) const {
+    const size_t i = ((size_t)b * T_ + t) * C + c;
+    if (skip) v += to_f(skip[i]);
+    dx[i] = from_f<T>(v);
+  }
+};
+
+// BN backward to the conv output: dy = dt(inv * (g * du - c1 - x̂ * c2)), x̂ in
+// f32; with h set, also h = GELU(BN(yp)) of the conv's input for K2
+template <typename T>
+struct BnBwd {
+  const T* du; const T* y; const float* mi; const float* gc; T* dy;
+  const T* yp; const float* mip; const float* gbp; T* h;
+  float* part; int T_, C, ntile;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(tap3::THREADS) bn_bwd_kernel(BnBwd<T> a) {
+  __shared__ float red[2 * TN];
+  const int c = threadIdx.x % TN, half = threadIdx.x / TN, co = blockIdx.x * TN + c;
+  const int t0 = blockIdx.y * TM, b = blockIdx.z, C = a.C;
+  float s = 0.f;
+  if (co < C) {
+    const float m = a.mi[co], inv = a.mi[C + co], g = a.gc[co], c1 = a.gc[C + co], c2 = a.gc[2 * C + co];
+    for (int r = half * (TM / 2); r < (half + 1) * (TM / 2) && t0 + r < a.T_; ++r) {
+      const size_t i = ((size_t)b * a.T_ + t0 + r) * C + co;
+      const float xhat = (to_f(a.y[i]) - m) * inv;
+      const T v = from_f<T>(inv * (g * to_f(a.du[i]) - c1 - xhat * c2));
+      a.dy[i] = v;
+      s += to_f(v);
+      if (a.h) a.h[i] = from_f<T>(tap3::BnGelu<T>{a.mip, a.gbp, C}(to_f(a.yp[i]), co));
+    }
+  }
+  red[half * TN + c] = s;
+  __syncthreads();
+  if (half == 0 && co < C) a.part[((size_t)b * a.ntile + blockIdx.y) * C + co] = red[c] + red[TN + c];
+}
+
+template <typename T>
+int bn_bwd(const BnBwd<T>& a, int B, cudaStream_t stream) {
+  if ((long long)B * a.T_ == 0 || a.C == 0) return (int)cudaSuccess;
+  bn_bwd_kernel<T><<<dim3((a.C + TN - 1) / TN, a.ntile, B), tap3::THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+#define CHECK(expr)                 \
+  do {                              \
+    const int e_ = (expr);          \
+    if (e_ != 0) return e_;         \
+  } while (0)
+
+template <typename T>
+int f1(const void* x, const void* w0, const void* b0, void* y0, float* part, float* s0, int B, int Tlen, int Cin,
+       int C, int d0, int skip, cudaStream_t st) {
+  const tap3::Conv g = tap3::make_conv(B, Tlen, Cin, C, C, 0, d0, x, w0);
+  CHECK((tap3::launch_conv<T, 1>(x, w0, g, tap3::Ident{},
+                                 F1<T>{(const float*)b0, skip ? (const T*)x : nullptr, (T*)y0, Tlen, C}, part, st)));
+  return tap3::reduce(part, s0, B * g.ntile, 2 * C, st);
+}
+
+template <typename T>
+int f2(const void* y0, const void* mi0, const void* gb0, const void* w1, const void* b1, void* y1, float* part,
+       float* s1, int B, int Tlen, int C, int d1, cudaStream_t st) {
+  const tap3::Conv g = tap3::make_conv(B, Tlen, C, C, C, 0, d1, y0, w1);
+  const float *mi = (const float*)mi0, *gb = (const float*)gb0;
+  CHECK((tap3::launch_conv<T, 1>(y0, w1, g, tap3::BnGelu<T>{mi, gb, C},
+                                 F2<T>{(const float*)b1, (const T*)y0, mi, gb, (T*)y1, Tlen, C}, part, st)));
+  return tap3::reduce(part, s1, B * g.ntile, 2 * C, st);
+}
+
+template <typename T>
+int f3(const void* y1, const void* mi1, const void* gb1, const void* w2, const void* b2, void* out, int B, int Tlen,
+       int C, cudaStream_t st) {
+  const tap3::Conv g = tap3::make_conv(B, Tlen, C, C, 2 * C, C, 2, y1, w2);
+  return tap3::launch_conv<T, 2>(y1, w2, g, tap3::BnGelu<T>{(const float*)mi1, (const float*)gb1, C},
+                                 F3<T>{(const float*)b2, (T*)out, Tlen, C}, nullptr, st);
+}
+
+template <typename T>
+int b1(const void* dout, const void* y1, const void* mi1, const void* gb1, const void* w2, const void* b2,
+       const void* w2t, void* h1, void* dy2, void* du1, float* part, float* db2, float* s, int B, int Tlen, int C,
+       cudaStream_t st) {
+  const float *mi = (const float*)mi1, *gb = (const float*)gb1;
+  const tap3::Conv ga = tap3::make_conv(B, Tlen, C, C, 2 * C, C, 2, y1, w2);
+  CHECK((tap3::launch_conv<T, 2>(y1, w2, ga, tap3::BnGelu<T>{mi, gb, C},
+                                 B1a<T>{(const float*)b2, (const T*)dout, (T*)dy2, Tlen, C}, part, st, (T*)h1)));
+  CHECK(tap3::reduce(part, db2, B * ga.ntile, 2 * C, st));
+  const tap3::Conv gc = tap3::make_conv(B, Tlen, 2 * C, C, C, 0, 2, dy2, w2t);
+  CHECK((tap3::launch_conv<T, 1>(dy2, w2t, gc, tap3::Ident{},
+                                 GeluBnBwd<T>{nullptr, (const T*)y1, mi, gb, (T*)du1, Tlen, C}, part, st)));
+  return tap3::reduce(part, s, B * gc.ntile, 2 * C, st);
+}
+
+template <typename T>
+int b2(const void* du1, const void* y1, const void* mi1, const void* g1c, const void* y0, const void* mi0,
+       const void* gb0, const void* w1t, void* dy1, void* h0, void* du0, float* part, float* db1, float* s, int B,
+       int Tlen, int C, int d1, cudaStream_t st) {
+  const int ntile = (Tlen + TM - 1) / TM;
+  const float *mi0f = (const float*)mi0, *gb0f = (const float*)gb0;
+  CHECK(bn_bwd<T>(BnBwd<T>{(const T*)du1, (const T*)y1, (const float*)mi1, (const float*)g1c, (T*)dy1,
+                           (const T*)y0, mi0f, gb0f, (T*)h0, part, Tlen, C, ntile}, B, st));
+  CHECK(tap3::reduce(part, db1, B * ntile, C, st));
+  const tap3::Conv g = tap3::make_conv(B, Tlen, C, C, C, 0, d1, dy1, w1t);
+  CHECK((tap3::launch_conv<T, 1>(dy1, w1t, g, tap3::Ident{},
+                                 GeluBnBwd<T>{(const T*)dy1, (const T*)y0, mi0f, gb0f, (T*)du0, Tlen, C}, part, st)));
+  return tap3::reduce(part, s, B * ntile, 2 * C, st);
+}
+
+template <typename T>
+int b3(const void* du0, const void* y0, const void* mi0, const void* g0c, const void* w0t, void* dy0, void* dx,
+       float* part, float* db0, int B, int Tlen, int Cin, int C, int d0, int skip, cudaStream_t st) {
+  const int ntile = (Tlen + TM - 1) / TM;
+  CHECK(bn_bwd<T>(BnBwd<T>{(const T*)du0, (const T*)y0, (const float*)mi0, (const float*)g0c, (T*)dy0,
+                           nullptr, nullptr, nullptr, nullptr, part, Tlen, C, ntile}, B, st));
+  CHECK(tap3::reduce(part, db0, B * ntile, C, st));
+  const tap3::Conv g = tap3::make_conv(B, Tlen, C, Cin, Cin, 0, d0, dy0, w0t);
+  return tap3::launch_conv<T, 1>(dy0, w0t, g, tap3::Ident{},
+                                 B3c<T>{skip ? (const T*)dy0 : nullptr, (T*)dx, Tlen, Cin}, nullptr, st);
+}
+
+}  // namespace
+
+// Shapes: x (B, T, Cin); y0, y1, out, du1, du0, dy1, dy0, h0, h1 (B, T, C);
+// dy2 (B, T, 2C); w0 (3, Cin, C), w1 (3, C, C), w2 (3, C, 2C) and the
+// transposed w0t (3, C, Cin), w1t (3, C, C), w2t (3, 2C, C), all in dt; b0,
+// b1 (C,), b2 (2C,), mi/gb (2, C) [mean; inv] / [scale; bias], g1c/g0c (3, C)
+// [g; c1; c2] f32; sums s0, s1, s (2, C), db2 (2C,), db1, db0 (C,) f32.
+#define ENTRIES(SUF, T)                                                                                          \
+  extern "C" int cbt_f1_##SUF(const void* x, const void* w0, const void* b0, void* y0, void* part, void* s0,      \
+                              int B, int Tlen, int Cin, int C, int d0, int skip, void* st) {                     \
+    return f1<T>(x, w0, b0, y0, (float*)part, (float*)s0, B, Tlen, Cin, C, d0, skip, (cudaStream_t)st);          \
+  }                                                                                                              \
+  extern "C" int cbt_f2_##SUF(const void* y0, const void* mi0, const void* gb0, const void* w1, const void* b1,   \
+                              void* y1, void* part, void* s1, int B, int Tlen, int C, int d1, void* st) {         \
+    return f2<T>(y0, mi0, gb0, w1, b1, y1, (float*)part, (float*)s1, B, Tlen, C, d1, (cudaStream_t)st);          \
+  }                                                                                                              \
+  extern "C" int cbt_f3_##SUF(const void* y1, const void* mi1, const void* gb1, const void* w2, const void* b2,   \
+                              void* out, int B, int Tlen, int C, void* st) {                                     \
+    return f3<T>(y1, mi1, gb1, w2, b2, out, B, Tlen, C, (cudaStream_t)st);                                       \
+  }                                                                                                              \
+  extern "C" int cbt_b1_##SUF(const void* dout, const void* y1, const void* mi1, const void* gb1, const void* w2, \
+                              const void* b2, const void* w2t, void* h1, void* dy2, void* du1, void* part,        \
+                              void* db2, void* s, int B, int Tlen, int C, void* st) {                             \
+    return b1<T>(dout, y1, mi1, gb1, w2, b2, w2t, h1, dy2, du1, (float*)part, (float*)db2, (float*)s, B, Tlen,    \
+                 C, (cudaStream_t)st);                                                                           \
+  }                                                                                                              \
+  extern "C" int cbt_b2_##SUF(const void* du1, const void* y1, const void* mi1, const void* g1c, const void* y0,  \
+                              const void* mi0, const void* gb0, const void* w1t, void* dy1, void* h0, void* du0,  \
+                              void* part, void* db1, void* s, int B, int Tlen, int C, int d1, void* st) {         \
+    return b2<T>(du1, y1, mi1, g1c, y0, mi0, gb0, w1t, dy1, h0, du0, (float*)part, (float*)db1, (float*)s, B,     \
+                 Tlen, C, d1, (cudaStream_t)st);                                                                 \
+  }                                                                                                              \
+  extern "C" int cbt_b3_##SUF(const void* du0, const void* y0, const void* mi0, const void* g0c, const void* w0t, \
+                              void* dy0, void* dx, void* part, void* db0, int B, int Tlen, int Cin, int C, int d0, \
+                              int skip, void* st) {                                                              \
+    return b3<T>(du0, y0, mi0, g0c, w0t, dy0, dx, (float*)part, (float*)db0, B, Tlen, Cin, C, d0, skip,         \
+                 (cudaStream_t)st);                                                                              \
+  }
+
+ENTRIES(f32, float)
+ENTRIES(bf16, bf16)

@@ -18,7 +18,9 @@ across unchanged:
     plain version on the CPU);
   * every k=3 conv is ``TapConv``, the JAX ``_gemm_conv`` custom VJP: tap
     GEMMs forward, the mirrored shifted-slice sum for dx, and dW through
-    ``ops.tap_conv.tap_conv_dw`` (K2);
+    ``ops.tap_conv.tap_conv_dw`` (K2); under ``conv_impl="pallas_taps"`` it
+    is ``ops.tap_conv.PallasTapConv`` instead: K5 forward and for dx, K2 for
+    dW;
   * train mode normalizes with batch statistics and updates the running
     ones in place (torch.nn.BatchNorm1d semantics), and applies one spatial
     dropout mask to the whole batch;
@@ -41,11 +43,13 @@ from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.ops.conv_block import dilations
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
-from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw
+from speech_decoding_tpu_torch.ops.tap_conv import PallasTapConv, tap_conv_dw
 
-# tpu.conv_impl values: all compute the same function, and the port runs
-# them all through TapConv, so every train step on the card runs K2
+# tpu.conv_impl values: all compute the same function. The port runs the
+# first four through TapConv (so every train step on the card runs K2) and
+# pallas_taps through PallasTapConv (K5 and K2)
 _SAME_CONV_IMPLS = ("xla", "gemm", "gemm_pdw", "gemm_wide")
+CONV_IMPLS = _SAME_CONV_IMPLS + ("pallas_taps",)
 
 
 def _uniform(shape, bound: float, generator, low: Optional[float] = None) -> nn.Parameter:
@@ -140,14 +144,18 @@ class TapConv(torch.autograd.Function):
 class Conv1d(nn.Module):
     """1-D conv in (B, T, C) layout, torch-default init, 'SAME' padding:
     k=1 is one flat (B·T, Cin) GEMM, k=3 is ``TapConv`` (three shifted
-    full-width GEMMs, dW through K2). The encoder has no other kernel size,
-    and K2 computes exactly three taps, so others raise ValueError."""
+    full-width GEMMs, dW through K2), or ``PallasTapConv`` (K5, dW through
+    K2) when ``impl`` is "pallas_taps". The encoder has no other kernel size,
+    and K2 and K5 compute exactly three taps, so others raise ValueError."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
-                 dilation: int = 1, compute_dtype=torch.float32, generator=None):
+                 dilation: int = 1, compute_dtype=torch.float32, generator=None, impl: str = "gemm"):
         super().__init__()
         if kernel_size not in (1, 3):
             raise ValueError(f"Conv1d takes kernel_size 1 or 3 (K2 computes three taps), got {kernel_size}")
+        if impl not in CONV_IMPLS:
+            raise ValueError(f"unknown conv impl {impl!r}")
+        self.impl = impl
         self.dilation = dilation
         self.compute_dtype = compute_dtype
         bound = 1.0 / math.sqrt(in_features * kernel_size)
@@ -161,6 +169,8 @@ class Conv1d(nn.Module):
         B, T, Cin = x.shape
         if w.shape[0] == 1:
             y = (x.reshape(B * T, Cin) @ w[0]).reshape(B, T, -1)
+        elif self.impl == "pallas_taps":
+            y = PallasTapConv.apply(x.contiguous(), w.contiguous(), self.dilation)
         else:
             y = TapConv.apply(x, w, self.dilation)
         return y + self.bias.to(dt)
@@ -240,16 +250,17 @@ class ConvBlock(nn.Module):
     """Dilated conv block with residual skips, BN + GELU and a GLU output
     [ref: models.py:120-166]; dilations 2^((2k)%5), 2^((2k+1)%5) and 2."""
 
-    def __init__(self, k: int, in_features: int, D2: int, compute_dtype=torch.float32, generator=None):
+    def __init__(self, k: int, in_features: int, D2: int, compute_dtype=torch.float32, generator=None,
+                 conv_impl: str = "gemm"):
         super().__init__()
         self.k = k
         d0, d1 = dilations(k)
         dt = compute_dtype
-        self.conv0 = Conv1d(in_features, D2, 3, d0, dt, generator)
+        self.conv0 = Conv1d(in_features, D2, 3, d0, dt, generator, conv_impl)
         self.batchnorm0 = TorchBatchNorm(D2, compute_dtype=dt)
-        self.conv1 = Conv1d(D2, D2, 3, d1, dt, generator)
+        self.conv1 = Conv1d(D2, D2, 3, d1, dt, generator, conv_impl)
         self.batchnorm1 = TorchBatchNorm(D2, compute_dtype=dt)
-        self.conv2 = Conv1d(D2, 2 * D2, 3, 2, dt, generator)
+        self.conv2 = Conv1d(D2, 2 * D2, 3, 2, dt, generator, conv_impl)
 
     def forward(self, X: torch.Tensor, train: bool = False) -> torch.Tensor:
         Y = self.conv0(X)
@@ -266,11 +277,14 @@ class ConvBlock(nn.Module):
 class BrainEncoder(nn.Module):
     """SubjectBlock -> 5 ConvBlocks -> two 1x1 heads with GELU
     [ref: models.py:169-196]. Public layout matches the reference: X (B, C, T)
-    -> Z (B, F, T); with ``channels_last_io`` X (B, T, C) -> Z (B, T, F)."""
+    -> Z (B, F, T); with ``channels_last_io`` X (B, T, C) -> Z (B, T, F).
+    ``conv_impl`` "pallas_taps" runs the k=3 convs through K5; every other
+    value of ``CONV_IMPLS`` through ``TapConv``."""
 
     def __init__(self, num_subjects: int, loc: np.ndarray, D1: int = 270, D2: int = 320,
                  F: int = 1024, K: int = 32, d_drop: float = 0.1, compute_dtype=torch.float32,
-                 channels_last_io: bool = False, generator: Optional[torch.Generator] = None):
+                 channels_last_io: bool = False, generator: Optional[torch.Generator] = None,
+                 conv_impl: str = "gemm"):
         super().__init__()
         self.num_subjects, self.D1, self.D2, self.F, self.K = num_subjects, D1, D2, F, K
         self.d_drop = d_drop
@@ -280,7 +294,7 @@ class BrainEncoder(nn.Module):
         dt = compute_dtype
         self.subject_block = SubjectBlock(num_subjects, D1, K, self.loc, dt, generator)
         for k in range(5):
-            setattr(self, f"conv{k}", ConvBlock(k, D1 if k == 0 else D2, D2, dt, generator))
+            setattr(self, f"conv{k}", ConvBlock(k, D1 if k == 0 else D2, D2, dt, generator, conv_impl))
         self.conv_final1 = Conv1d(D2, 2 * D2, 1, compute_dtype=dt, generator=generator)
         self.conv_final2 = Conv1d(2 * D2, F, 1, compute_dtype=dt, generator=generator)
 
@@ -294,12 +308,10 @@ class BrainEncoder(nn.Module):
         JAX package's TPU kernels, while the port's kernel wrappers follow the
         device of their tensors. ``tpu.conv_impl`` 'xla', 'gemm', 'gemm_pdw'
         and 'gemm_wide' compute the same function and all run ``TapConv``
-        (dW through K2); 'pallas_taps' (K5) and ``tpu.remat`` raise
-        NotImplementedError until they are ported."""
+        (dW through K2); 'pallas_taps' runs ``PallasTapConv`` (K5, dW through
+        K2). ``tpu.remat`` raises NotImplementedError until it is ported."""
         impl = str(args.select("tpu.conv_impl", "xla"))
-        if impl == "pallas_taps":
-            raise NotImplementedError("tpu.conv_impl=pallas_taps needs K5 (tap_conv), which is not ported yet")
-        if impl not in _SAME_CONV_IMPLS:
+        if impl not in CONV_IMPLS:
             raise ValueError(f"unknown tpu.conv_impl {impl!r}")
         if args.select("tpu.remat", False):
             raise NotImplementedError("tpu.remat is not ported yet: recomputing a block would update "
@@ -310,7 +322,7 @@ class BrainEncoder(nn.Module):
             num_subjects=num_subjects, loc=loc, D1=args.D1, D2=args.D2, F=F, K=args.K,
             d_drop=float(args.d_drop), compute_dtype=dtype,
             channels_last_io=bool(args.select("tpu.channels_last_io", False)),
-            generator=generator,
+            generator=generator, conv_impl="pallas_taps" if impl == "pallas_taps" else "gemm",
         )
 
     def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor, train: bool = False,

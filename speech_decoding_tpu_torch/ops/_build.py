@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface, at first use, under
 ``build/kernels/`` of the checkout (gitignored). The library file is keyed by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads from disk. Libraries are loaded with ``ctypes``: every
+a hash of the source, of every shared header ``csrc/*.cuh`` and of the
+flags, so an edited source or header rebuilds and an unchanged one loads
+from disk. Libraries are loaded with ``ctypes``: every
 pointer and the stream cross as ``c_void_p``, every C entry returns the
 ``cudaGetLastError()`` of its launch, and ``check`` raises on a non-zero
 code. Nothing here includes PyTorch's headers, so a build takes seconds.
@@ -15,6 +16,7 @@ No JAX counterpart: the JAX package's Pallas kernels compile inside XLA.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -45,8 +47,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in [os.path.join(SRC_DIR, f"{name}.cu"), *sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

@@ -1,0 +1,363 @@
+"""The train-mode ConvBlock in three fused stages a direction (K6).
+
+Port of ``speech_decoding_tpu/ops/pallas/conv_block_train.py``. Train-mode
+BatchNorm needs the batch statistics between the convs, so each block runs
+as three stages per direction, one per BN sync point, with the statistics
+reductions fused into the stage that produces the activation:
+
+  forward
+    F1: y0 = conv_d0(x) + b0 (+ x)                      ; Σy0, Σy0²
+    F2: h0 = gelu(bn0(y0)); y1 = conv_d1(h0) + b1 + h0  ; Σy1, Σy1²
+    F3: h1 = gelu(bn1(y1)); out = glu(conv_2(h1) + b2)
+  backward (h0, h1 and y2 are recomputed from the saved y0, y1)
+    B1: glu and conv2 backward -> du1                   ; dW2, db2, Σdu1, Σdu1·x̂1
+    B2: bn1 backward, conv1 backward + skip -> du0      ; dW1, db1, Σdu0, Σdu0·x̂0
+    B3: bn0 backward, conv0 backward (+ skip) -> dx     ; dW0, db0
+
+Between the stages only O(C) math runs, as plain torch ops (means, inverse
+standard deviations, the BN-backward correction terms), as the JAX package
+leaves it to XLA. Numerics follow the Pallas bodies: convs accumulate in
+f32; y0 and y1 are cast to the compute dtype dt before their statistics;
+BatchNorm is applied in dt from f32 statistics (``_bn_apply``); GELU is
+computed in f32 and cast; F2 adds its skip in f32 before its one cast; B1
+and B2 take x̂ in dt, B2 and B3 recompute the x̂ of dy in f32; every dy is
+cast to dt before its dW; the variance is E[y²] − mean² in f32.
+
+Each stage function (``f1`` … ``b3``) launches its CUDA kernels
+(``csrc/conv_block_train.cu``, built on the conv tile of ``csrc/tap3.cuh``)
+for CUDA tensors and runs its plain version (``f1_plain`` … ``b3_plain``) for
+CPU tensors; it never falls back on the card. B1, B2 and B3 take their dW
+from K2 (``ops.tap_conv.tap_conv_dw``) on the card (see the CUDA source for
+where each stage splits). Each stage counts one launch a call.
+
+The plain versions use ``torch.erf``; the Pallas kernels build erf from exp
+(Abramowitz–Stegun 7.1.26, |err| ≤ 1.5e-7) and the CUDA kernels use
+``erff``: the three differ by far less than the f32 tolerances of the tests.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+from speech_decoding_tpu_torch.ops import _build
+from speech_decoding_tpu_torch.ops.conv_block import _conv3, _gelu_exact_f32, dilations
+from speech_decoding_tpu_torch.ops.tap_conv import flip_taps, tap_conv_dw, tap_conv_dw_plain
+
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_TM = 64  # time rows per block (csrc/tap3.cuh TM)
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _dgelu_f32(u: torch.Tensor) -> torch.Tensor:
+    """d/du [u · Φ(u)] = Φ(u) + u · φ(u), exact erf form, f32."""
+    uf = u.float()
+    cdf = 0.5 * (1.0 + torch.erf(uf * _INV_SQRT2))
+    pdf = torch.exp(-0.5 * uf * uf) * _INV_SQRT2PI
+    return cdf + uf * pdf
+
+
+def _bn_apply(y: torch.Tensor, mi: torch.Tensor, gb: torch.Tensor, dt) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u, x̂) in dt, one rounding per op: normalise in dt from f32 statistics.
+    mi (2, C) [mean; inv], gb (2, C) [scale; bias]."""
+    xhat = (y.to(dt) - mi[0].to(dt)) * mi[1].to(dt)
+    return xhat * gb[0].to(dt) + gb[1].to(dt), xhat
+
+
+def _stats_from_sums(s: torch.Tensor, n: int, eps: float = 1e-5):
+    """(mean, biased var, inv) in f32 from the sums [Σy; Σy²]."""
+    m = s[0] / n
+    var = s[1] / n - m * m
+    return m, var, torch.rsqrt(var + eps)
+
+
+def _sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(2, C) f32 [Σ a; Σ b] over batch and time."""
+    return torch.stack([a.float().sum((0, 1)), b.float().sum((0, 1))])
+
+
+def _h(y, mi, gb, dt):
+    u, xhat = _bn_apply(y, mi, gb, dt)
+    return _gelu_exact_f32(u).to(dt), u, xhat
+
+
+# -- plain versions: the Pallas bodies, batched over rows -------------------------------
+
+
+def f1_plain(x, w0, b0, k: int):
+    d0, _ = dilations(k)
+    y = _conv3(x, w0, d0) + b0
+    if k > 0:
+        y = y + x.float()
+    y0 = y.to(x.dtype)
+    return y0, _sums(y0, y0.float() ** 2)
+
+
+def f2_plain(y0, mi0, gb0, w1, b1, k: int):
+    _, d1 = dilations(k)
+    h0, _, _ = _h(y0, mi0, gb0, y0.dtype)
+    y1 = (_conv3(h0, w1, d1) + b1 + h0.float()).to(y0.dtype)
+    return y1, _sums(y1, y1.float() ** 2)
+
+
+def f3_plain(y1, mi1, gb1, w2, b2):
+    dt = y1.dtype
+    h1, _, _ = _h(y1, mi1, gb1, dt)
+    y2 = _conv3(h1, w2, 2) + b2
+    C = y2.shape[-1] // 2
+    return y2[..., :C].to(dt) * torch.sigmoid(y2[..., C:]).to(dt)
+
+
+def b1_plain(dout, y1, mi1, gb1, w2, b2, w2t):
+    dt = y1.dtype
+    h1, u1, xhat1 = _h(y1, mi1, gb1, dt)
+    y2 = _conv3(h1, w2, 2) + b2
+    C = y2.shape[-1] // 2
+    a, sig = y2[..., :C], torch.sigmoid(y2[..., C:])
+    df = dout.float()
+    dy2 = torch.cat([df * sig, df * a * sig * (1.0 - sig)], dim=-1).to(dt)
+    du1 = (_conv3(dy2, w2t, 2) * _dgelu_f32(u1)).to(dt)
+    return du1, _sums(du1, du1.float() * xhat1.float()), tap_conv_dw_plain(h1, dy2, 2), dy2.float().sum((0, 1))
+
+
+def _bn_bwd(du, y, mi, gc, dt):
+    """dy = dt(inv · (g · du − c1 − x̂ · c2)) with x̂ in f32."""
+    xhat = (y.float() - mi[0]) * mi[1]
+    return (mi[1] * (gc[0] * du.float() - gc[1] - xhat * gc[2])).to(dt)
+
+
+def b2_plain(du1, y1, mi1, g1c, y0, mi0, gb0, w1t, k: int):
+    _, d1 = dilations(k)
+    dt = y1.dtype
+    dy1 = _bn_bwd(du1, y1, mi1, g1c, dt)
+    h0, u0, xhat0 = _h(y0, mi0, gb0, dt)
+    du0 = ((_conv3(dy1, w1t, d1) + dy1.float()) * _dgelu_f32(u0)).to(dt)
+    return (du0, _sums(du0, du0.float() * xhat0.float()), tap_conv_dw_plain(h0, dy1, d1),
+            dy1.float().sum((0, 1)))
+
+
+def b3_plain(du0, y0, mi0, g0c, x, w0t, k: int):
+    d0, _ = dilations(k)
+    dy0 = _bn_bwd(du0, y0, mi0, g0c, y0.dtype)
+    dx = _conv3(dy0, w0t, d0)
+    if k > 0:
+        dx = dx + dy0.float()
+    return dx.to(x.dtype), tap_conv_dw_plain(x, dy0, d0), dy0.float().sum((0, 1))
+
+
+# -- kernel launches ---------------------------------------------------------------------
+
+
+def _check(stage: str, dt, dev, expect: Sequence) -> None:
+    """Every (tensor, shape, dtype) as the kernel reads it, on ``dev``."""
+    if dt not in _DTYPES:
+        raise TypeError(f"conv_block_train {stage} takes float32 or bfloat16 activations, got {dt}")
+    for i, (t, shape, dtype) in enumerate(expect):
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"conv_block_train {stage} argument {i + 1}: expected {tuple(shape)} {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"conv_block_train {stage} argument {i + 1} must be contiguous on {dev}")
+
+
+def _run(stage: str, dt, tensors, ints, dev) -> None:
+    fn = getattr(_build.load("conv_block_train"), f"cbt_{stage}_{_DTYPES[dt]}")
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+    _build.check(err, f"conv_block_train {stage}")
+
+
+def _empty(dev, *shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=dev)
+
+
+def _part(B: int, T: int, C: int, dev) -> torch.Tensor:
+    """f32 scratch: two per-channel partial sums for every (recording, time tile)."""
+    return _empty(dev, B * -(-T // _TM) * 2 * C)
+
+
+def _f1_launch(x, w0, b0, k):
+    B, T, Cin = x.shape
+    C, dt, dev = w0.shape[2], x.dtype, x.device
+    _check("F1", dt, dev, [(x, (B, T, Cin), dt), (w0, (3, Cin, C), dt), (b0, (C,), torch.float32)])
+    if k > 0 and Cin != C:
+        raise ValueError(f"block k={k} has a skip around conv0, so Cin must equal C ({Cin} != {C})")
+    y0, s0 = _empty(dev, B, T, C, dtype=dt), _empty(dev, 2, C)
+    _run("f1", dt, [x, w0, b0, y0, _part(B, T, C, dev), s0], [B, T, Cin, C, dilations(k)[0], int(k > 0)], dev)
+    return y0, s0
+
+
+def _f2_launch(y0, mi0, gb0, w1, b1, k):
+    B, T, C = y0.shape
+    dt, dev, f32 = y0.dtype, y0.device, torch.float32
+    _check("F2", dt, dev, [(y0, (B, T, C), dt), (mi0, (2, C), f32), (gb0, (2, C), f32), (w1, (3, C, C), dt),
+                           (b1, (C,), f32)])
+    y1, s1 = _empty(dev, B, T, C, dtype=dt), _empty(dev, 2, C)
+    _run("f2", dt, [y0, mi0, gb0, w1, b1, y1, _part(B, T, C, dev), s1], [B, T, C, dilations(k)[1]], dev)
+    return y1, s1
+
+
+def _f3_launch(y1, mi1, gb1, w2, b2):
+    B, T, C = y1.shape
+    dt, dev, f32 = y1.dtype, y1.device, torch.float32
+    _check("F3", dt, dev, [(y1, (B, T, C), dt), (mi1, (2, C), f32), (gb1, (2, C), f32), (w2, (3, C, 2 * C), dt),
+                           (b2, (2 * C,), f32)])
+    out = _empty(dev, B, T, C, dtype=dt)
+    _run("f3", dt, [y1, mi1, gb1, w2, b2, out], [B, T, C], dev)
+    return out
+
+
+def _b1_launch(dout, y1, mi1, gb1, w2, b2, w2t):
+    B, T, C = y1.shape
+    dt, dev, f32 = y1.dtype, y1.device, torch.float32
+    _check("B1", dt, dev, [(dout, (B, T, C), dt), (y1, (B, T, C), dt), (mi1, (2, C), f32), (gb1, (2, C), f32),
+                           (w2, (3, C, 2 * C), dt), (b2, (2 * C,), f32), (w2t, (3, 2 * C, C), dt)])
+    h1, dy2, du1 = _empty(dev, B, T, C, dtype=dt), _empty(dev, B, T, 2 * C, dtype=dt), _empty(dev, B, T, C, dtype=dt)
+    db2, s = _empty(dev, 2 * C), _empty(dev, 2, C)
+    _run("b1", dt, [dout, y1, mi1, gb1, w2, b2, w2t, h1, dy2, du1, _part(B, T, C, dev), db2, s], [B, T, C], dev)
+    return du1, s, tap_conv_dw(h1, dy2, 2), db2
+
+
+def _b2_launch(du1, y1, mi1, g1c, y0, mi0, gb0, w1t, k):
+    B, T, C = y1.shape
+    dt, dev, f32 = y1.dtype, y1.device, torch.float32
+    _check("B2", dt, dev, [(du1, (B, T, C), dt), (y1, (B, T, C), dt), (mi1, (2, C), f32), (g1c, (3, C), f32),
+                           (y0, (B, T, C), dt), (mi0, (2, C), f32), (gb0, (2, C), f32), (w1t, (3, C, C), dt)])
+    dy1, h0, du0 = (_empty(dev, B, T, C, dtype=dt) for _ in range(3))
+    db1, s = _empty(dev, C), _empty(dev, 2, C)
+    d1 = dilations(k)[1]
+    _run("b2", dt, [du1, y1, mi1, g1c, y0, mi0, gb0, w1t, dy1, h0, du0, _part(B, T, C, dev), db1, s], [B, T, C, d1],
+         dev)
+    return du0, s, tap_conv_dw(h0, dy1, d1), db1
+
+
+def _b3_launch(du0, y0, mi0, g0c, x, w0t, k):
+    B, T, C = y0.shape
+    Cin, dt, dev, f32 = x.shape[2], y0.dtype, y0.device, torch.float32
+    _check("B3", dt, dev, [(du0, (B, T, C), dt), (y0, (B, T, C), dt), (mi0, (2, C), f32), (g0c, (3, C), f32),
+                           (x, (B, T, Cin), dt), (w0t, (3, C, Cin), dt)])
+    if k > 0 and Cin != C:
+        raise ValueError(f"block k={k} has a skip around conv0, so Cin must equal C ({Cin} != {C})")
+    dy0, dx, db0 = _empty(dev, B, T, C, dtype=dt), _empty(dev, B, T, Cin, dtype=dt), _empty(dev, C)
+    d0 = dilations(k)[0]
+    _run("b3", dt, [du0, y0, mi0, g0c, w0t, dy0, dx, _part(B, T, C, dev), db0], [B, T, Cin, C, d0, int(k > 0)], dev)
+    return dx, tap_conv_dw(x, dy0, d0), db0
+
+
+def _stage(name: str, launch, plain):
+    """The stage wrapper: the kernels for CUDA tensors, the plain version for
+    CPU tensors. Its ``launches`` counts calls that launched the kernels."""
+
+    def stage(*args):
+        if args[0].is_cuda:
+            out = launch(*args)
+            stage.launches += 1
+            return out
+        if args[0].device.type != "cpu":
+            raise ValueError(f"conv_block_train {name} runs on CUDA or CPU tensors, got {args[0].device}")
+        return plain(*args)
+
+    stage.__name__ = stage.__qualname__ = name.lower()
+    stage.__doc__ = f"K6 stage {name}: arguments and results as ``{plain.__name__}``."
+    stage.launches = 0
+    return stage
+
+
+f1 = _stage("F1", _f1_launch, f1_plain)
+f2 = _stage("F2", _f2_launch, f2_plain)
+f3 = _stage("F3", _f3_launch, f3_plain)
+b1 = _stage("B1", _b1_launch, b1_plain)
+b2 = _stage("B2", _b2_launch, b2_plain)
+b3 = _stage("B3", _b3_launch, b3_plain)
+STAGES = {"F1": f1, "F2": f2, "F3": f3, "B1": b1, "B2": b2, "B3": b3}
+PLAIN = {"F1": f1_plain, "F2": f2_plain, "F3": f3_plain, "B1": b1_plain, "B2": b2_plain, "B3": b3_plain}
+
+
+def stage_inputs(B: int, T: int, Cin: int, C: int, k: int, dtype, device, generator: torch.Generator):
+    """Random arguments of every stage of block k, as the block passes them:
+    activations and weights in ``dtype``, statistics and biases in f32, with
+    inverse standard deviations and BN scales in [0.5, 1.5). ``generator``
+    lies on ``device``. Returns {stage name: args}."""
+    def r(*shape):
+        return torch.randn(*shape, device=device, generator=generator)
+
+    def pos(n):
+        return 0.5 + torch.rand(n, device=device, generator=generator)
+
+    w0, w1, w2 = (r(3, cin, cout).div((3 * cin) ** 0.5).to(dtype) for cin, cout in ((Cin, C), (C, C), (C, 2 * C)))
+    b0, b1_, b2_ = 0.1 * r(C), 0.1 * r(C), 0.1 * r(2 * C)
+    x, y0, y1, dout, du1, du0 = (r(B, T, c).to(dtype) for c in (Cin, C, C, C, C, C))
+    mi0, mi1 = (torch.stack([0.1 * r(C), pos(C)]) for _ in range(2))
+    gb0, gb1 = (torch.stack([pos(C), 0.1 * r(C)]) for _ in range(2))
+    g0c, g1c = (torch.stack([pos(C), 0.01 * r(C), 0.01 * r(C)]) for _ in range(2))
+    return {
+        "F1": (x, w0, b0, k), "F2": (y0, mi0, gb0, w1, b1_, k), "F3": (y1, mi1, gb1, w2, b2_),
+        "B1": (dout, y1, mi1, gb1, w2, b2_, flip_taps(w2)),
+        "B2": (du1, y1, mi1, g1c, y0, mi0, gb0, flip_taps(w1), k),
+        "B3": (du0, y0, mi0, g0c, x, flip_taps(w0), k),
+    }
+
+
+# -- the differentiable block ------------------------------------------------------------
+
+
+class _ConvBlockTrain(torch.autograd.Function):
+    """JAX's ``conv_block_train`` custom VJP (``_fwd_rule``/``_bwd_rule``):
+    the saved tensors are its residuals, x, y0 and y1 with the statistics;
+    h0, h1 and y2 are recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k, eps):
+        dt = x.dtype
+        n = x.shape[0] * x.shape[1]
+        x = x.contiguous()
+        wd = [w.to(dt).contiguous() for w in (w0, w1, w2)]
+        y0, s0 = f1(x, wd[0], b0.float().contiguous(), k)
+        m0, v0, inv0 = _stats_from_sums(s0, n, eps)
+        mi0, gb0 = torch.stack([m0, inv0]), torch.stack([g0, beta0]).float()
+        y1, s1 = f2(y0, mi0, gb0, wd[1], b1.float().contiguous(), k)
+        m1, v1, inv1 = _stats_from_sums(s1, n, eps)
+        mi1, gb1 = torch.stack([m1, inv1]), torch.stack([g1, beta1]).float()
+        out = f3(y1, mi1, gb1, wd[2], b2.float().contiguous())
+        ctx.save_for_backward(x, y0, y1, mi0, gb0, mi1, gb1, w0, w1, w2, b2, g0, g1)
+        ctx.k = k
+        ctx.mark_non_differentiable(m0, v0, m1, v1)
+        return out, m0, v0, m1, v1
+
+    @staticmethod
+    def backward(ctx, dout, *_stat_grads):  # the statistics are aux outputs: no cotangent
+        x, y0, y1, mi0, gb0, mi1, gb1, w0, w1, w2, bias2, g0, g1 = ctx.saved_tensors
+        k, dt = ctx.k, x.dtype
+        n = x.shape[0] * x.shape[1]
+        w0d, w1d, w2d = (w.to(dt) for w in (w0, w1, w2))
+        du1, s_bn1, dw2, db2 = b1(dout.to(dt).contiguous(), y1, mi1, gb1, w2d.contiguous(),
+                                  bias2.float().contiguous(), flip_taps(w2d))
+        g1f = g1.float()
+        g1c = torch.stack([g1f, g1f * s_bn1[0] / n, g1f * s_bn1[1] / n])
+        du0, s_bn0, dw1, db1 = b2(du1, y1, mi1, g1c, y0, mi0, gb0, flip_taps(w1d), k)
+        g0f = g0.float()
+        g0c = torch.stack([g0f, g0f * s_bn0[0] / n, g0f * s_bn0[1] / n])
+        dx, dw0, db0 = b3(du0, y0, mi0, g0c, x, flip_taps(w0d), k)
+        return (dx, dw0.to(w0.dtype), db0, s_bn0[1], s_bn0[0], dw1.to(w1.dtype), db1, s_bn1[1], s_bn1[0],
+                dw2.to(w2.dtype), db2, None, None)
+
+
+def conv_block_train(x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k: int,
+                     eps: float = 1e-5) -> Tuple[torch.Tensor, Stats]:
+    """Train-mode ConvBlock k [ref: models.py:120-166], fused. x (B, T, Cin)
+    in the compute dtype; w* (3, Cin/C, C/2C) conv taps (cast to x's dtype);
+    b* conv biases; g*/beta* BN scale and bias (C,). Returns (out (B, T, C),
+    (m0, v0, m1, v1)): the batch mean and biased variance of each BN, which
+    the caller folds into the running statistics. The statistics are not
+    differentiable (JAX's aux outputs)."""
+    out, m0, v0, m1, v1 = _ConvBlockTrain.apply(x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k, eps)
+    return out, (m0, v0, m1, v1)

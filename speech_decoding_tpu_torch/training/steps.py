@@ -21,6 +21,11 @@ the card, its plain version on the CPU. JAX's ``use_pallas_retrieval`` flag
 is not carried over: a flag that sent CUDA tensors past the kernel would be
 a fallback. Every step runs eagerly; JAX's ``jit`` and donation have no
 counterpart here (the state is updated in place).
+
+``fused_blocks=True`` (JAX's ``tpu.fused_train_blocks``) runs the train
+forward through ``models.fused_train.fused_train_forward``: the five
+ConvBlocks as K6 on the card, their plain versions on the CPU. JAX's
+``fused_mesh`` (the sharded fused forward) is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from speech_decoding_tpu_torch.models.classifier import retrieval_accuracy_from_similarity
+from speech_decoding_tpu_torch.models.fused_train import fused_train_forward
 from speech_decoding_tpu_torch.models.loss import clip_loss
 from speech_decoding_tpu_torch.ops.retrieval import retrieval_metrics_kernel
 from speech_decoding_tpu_torch.ops.scaling import apply_scale_stats, gwilliams_collate
@@ -50,9 +56,12 @@ def _maybe_collate(batch: Batch, collate: Optional[Dict]) -> torch.Tensor:
                              clamp_lim=collate["clamp_lim"], do_clamp=collate["clamp"])
 
 
-def _train_forward(state: TrainState, batch: Batch, collate, reduction, generator, drop_mask):
+def _train_forward(state: TrainState, batch: Batch, collate, reduction, generator, drop_mask, fused_blocks=False):
     X = _maybe_collate(batch, collate)
-    Z = state.encoder(X, batch["subject_idxs"], train=True, drop_mask=drop_mask, generator=generator)
+    if fused_blocks:
+        Z = fused_train_forward(state.encoder, X, batch["subject_idxs"], drop_mask, generator)
+    else:
+        Z = state.encoder(X, batch["subject_idxs"], train=True, drop_mask=drop_mask, generator=generator)
     return clip_loss(batch["Y"], Z, state.clip.temp[0], reduction, return_logits=True)
 
 
@@ -64,16 +73,17 @@ def _metrics(state: TrainState, logits: torch.Tensor, loss: torch.Tensor) -> Met
             "temp": state.clip.temp.detach()[0].clone()}
 
 
-def make_train_step(reduction: str = "mean", collate: Optional[Dict] = None
+def make_train_step(reduction: str = "mean", collate: Optional[Dict] = None, fused_blocks: bool = False
                     ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """``step(state, batch, generator=None, drop_mask=None) -> (state,
     metrics)``: one optimizer step, in place. Metrics are 0-dim tensors on
-    the state's device (loss, top1, top10, and temp after the update)."""
+    the state's device (loss, top1, top10, and temp after the update).
+    ``fused_blocks`` runs the ConvBlocks as K6 (same function)."""
 
     def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
                    drop_mask: Optional[torch.Tensor] = None):
         state.optimizer.zero_grad(set_to_none=True)
-        logits, loss = _train_forward(state, batch, collate, reduction, generator, drop_mask)
+        logits, loss = _train_forward(state, batch, collate, reduction, generator, drop_mask, fused_blocks)
         loss.backward()
         state.optimizer.step()
         state.step += 1
@@ -82,13 +92,13 @@ def make_train_step(reduction: str = "mean", collate: Optional[Dict] = None
     return train_step
 
 
-def make_train_step_scan(reduction: str = "mean", collate: Optional[Dict] = None
+def make_train_step_scan(reduction: str = "mean", collate: Optional[Dict] = None, fused_blocks: bool = False
                          ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """``steps(state, batches, generator=None, drop_masks=None)``: k train
     steps over a stacked batch (leading axis k on every tensor; drop_masks
     (k, C)), the same as k calls of the single step (JAX runs them in one
     ``lax.scan``). Metrics get a leading k axis."""
-    single = make_train_step(reduction, collate)
+    single = make_train_step(reduction, collate, fused_blocks)
 
     def train_steps(state: TrainState, batches: Batch, generator: Optional[torch.Generator] = None,
                     drop_masks: Optional[torch.Tensor] = None):

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (K1 forward and backward, K2, K3, K4)
-against their plain PyTorch versions, on the card. Marked ``cuda``; each test skips when no CUDA device is present (the
+"""The hand-written CUDA kernels (K1 forward and backward, K2, K3, K4, K5
+and the six stages of K6) against their plain PyTorch versions, on the card. Marked ``cuda``; each test skips when no CUDA device is present (the
 CPU tier holds the plain versions against JAX instead). Run on a GPU with
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
@@ -14,7 +14,10 @@ from speech_decoding_tpu_torch.ops.retrieval import (  # noqa: E402
     near_tie_rows, retrieval_ranks, retrieval_ranks_plain,
 )
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain  # noqa: E402
-from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw, tap_conv_dw_plain  # noqa: E402
+from speech_decoding_tpu_torch.ops import conv_block_train as cbt  # noqa: E402
+from speech_decoding_tpu_torch.ops.tap_conv import (  # noqa: E402
+    PallasTapConv, flip_taps, tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -288,3 +291,121 @@ def test_train_step_card_matches_cpu(dev):
     for k, v in states[1].encoder.named_buffers():
         if k in va:
             torch.testing.assert_close(v.cpu(), va[k], rtol=1e-4, atol=1e-6)
+
+
+# (Cin, Cout, d) of K5 at the flagship: forward convs and their dx forms
+K5_SHAPES = [(270, 320, 1), (320, 320, 1), (320, 320, 16), (320, 640, 2), (640, 320, 2), (320, 270, 1)]
+
+
+@pytest.mark.parametrize("cin,cout,d", K5_SHAPES)
+def test_tap_conv_flagship_bf16(dev, cin, cout, d):
+    """bf16 at B=64, T=360: both sides accumulate in f32 and cast once, so
+    they differ by a flipped rounding (one bf16 ulp) at most."""
+    g = torch.Generator(device=dev).manual_seed(cin + cout + d)
+    x = torch.randn(64, 360, cin, device=dev, generator=g).bfloat16()
+    w = torch.randn(3, cin, cout, device=dev, generator=g).div((3 * cin) ** 0.5).bfloat16()
+    before = tap_conv.launches
+    got = tap_conv(x, w, d)
+    assert tap_conv.launches == before + 1 and got.dtype == torch.bfloat16
+    _close_scaled(got, tap_conv_plain(x, w, d), 1e-2)
+
+
+@pytest.mark.parametrize("B,T,cin,cout,d", [(4, 360, 320, 640, 2), (4, 360, 270, 320, 1), (3, 37, 270, 40, 16),
+                                            (1, 2, 1, 1, 1), (5, 70, 24, 344, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tap_conv_ragged_and_f32(dev, B, T, cin, cout, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(B * T + d)
+    x = torch.randn(B, T, cin, device=dev, generator=g).to(dtype)
+    w = torch.randn(3, cin, cout, device=dev, generator=g).to(dtype)
+    _close_scaled(tap_conv(x, w, d), tap_conv_plain(x, w, d), 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tap_conv_is_deterministic_and_its_vjp_matches_plain(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(8, 360, 320, device=dev, generator=g).to(dtype)
+    w = torch.randn(3, 320, 320, device=dev, generator=g).div(31).to(dtype)
+    a, b = tap_conv(x, w, 4), tap_conv(x, w, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    gy = torch.randn(8, 360, 320, device=dev, generator=g).to(dtype)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    PallasTapConv.apply(xa, wa, 4).backward(gy)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    _close_scaled(xa.grad, tap_conv_plain(gy, flip_taps(w), 4), rel)
+    _close_scaled(wa.grad, tap_conv_dw_plain(x, gy, 4).to(dtype), rel)
+
+
+def test_tap_conv_rejects(dev):
+    x = torch.zeros(2, 8, 16, device=dev)
+    with pytest.raises(TypeError):
+        tap_conv(x, torch.zeros(3, 16, 4, device=dev).bfloat16(), 1)
+    with pytest.raises(ValueError, match="dilation"):
+        tap_conv(x, torch.zeros(3, 16, 4, device=dev), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        tap_conv(x, torch.zeros(3, 4, 16, device=dev).transpose(1, 2), 1)
+
+
+def _k6_close(got, want, rel):
+    """Activations in bf16: a flipped rounding (TOL); f32 results (sums, dW,
+    db, f32 activations): ``rel`` of the largest entry."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            _close(a, b, torch.bfloat16)
+        else:
+            _close_scaled(a, b, rel)
+
+
+@pytest.mark.parametrize("stage", list(cbt.STAGES))
+@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("dtype,B,T", [(torch.bfloat16, 8, 360), (torch.float32, 2, 360), (torch.float32, 3, 37)])
+def test_conv_block_train_stage(dev, stage, k, dtype, B, T):
+    """Each K6 stage against its plain version: k=0 (Cin=270, no skip) and
+    k=1..4 at C=320; T=37 puts d=16 past both edges of a tile."""
+    args = cbt.stage_inputs(B, T, 270 if k == 0 else 320, 320, k, dtype, dev,
+                            torch.Generator(device=dev).manual_seed(10 * k + B))[stage]
+    fn = cbt.STAGES[stage]
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    _k6_close(got, cbt.PLAIN[stage](*args), 1e-4 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_block_train_stages_are_deterministic(dev, dtype):
+    args = cbt.stage_inputs(8, 360, 320, 320, 2, dtype, dev, torch.Generator(device=dev).manual_seed(3))
+    for stage, fn in cbt.STAGES.items():
+        a, b = fn(*args[stage]), fn(*args[stage])
+        torch.cuda.synchronize()
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y), stage
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_conv_block_train_matches_module_block(dev, k):
+    """f32: out, the batch statistics and all 11 gradients of one block
+    against the module ConvBlock's train forward with autograd (the same
+    function; sums in another order: 1e-4 of each tensor's largest entry
+    plus 1e-5 of the largest gradient, since the conv biases ahead of a
+    batch-stat BN have a zero gradient in exact arithmetic and hold rounding
+    noise on both sides)."""
+    from speech_decoding_tpu_torch.models.brain_encoder import ConvBlock
+
+    cin = 270 if k == 0 else 320
+    blk = ConvBlock(k, cin, 320, generator=torch.Generator().manual_seed(k)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn(4, 360, cin, device=dev, generator=g, requires_grad=True)
+    gy = torch.randn(4, 360, 320, device=dev, generator=g)
+    params = [p.detach().clone().requires_grad_() for p in blk.parameters()]
+    blk(x, train=True).backward(gy)
+    want = [x.grad] + [p.grad for p in blk.parameters()]
+    x2 = x.detach().clone().requires_grad_()
+    out, _ = cbt.conv_block_train(x2, *params, k)
+    out.backward(gy)
+    torch.cuda.synchronize()
+    gmax = max(float(b.abs().max()) for b in want)
+    for a, b in zip([x2.grad] + [p.grad for p in params], want):
+        assert bool(((a - b).abs() <= 1e-4 * float(b.abs().max()) + 1e-5 * gmax).all())

@@ -307,8 +307,13 @@ def test_from_config_conv_impl_and_remat():
     for impl in ("xla", "gemm", "gemm_pdw", "gemm_wide"):
         cfg = load_config(None, ["D1=16", "D2=16", "K=4", f"tpu.conv_impl={impl}"])
         assert BrainEncoder.from_config(cfg, loc, num_subjects=S).d_drop == cfg.d_drop
-    with pytest.raises(NotImplementedError, match="K5"):
-        BrainEncoder.from_config(load_config(None, ["tpu.conv_impl=pallas_taps"]), loc, num_subjects=S)
+    taps = BrainEncoder.from_config(load_config(None, ["D1=16", "D2=16", "K=4", "tpu.conv_impl=pallas_taps"]), loc,
+                                    num_subjects=S)
+    convs = [getattr(blk, f"conv{i}") for blk in taps.conv_blocks for i in range(3)]
+    assert len(convs) == 15 and all(c.impl == "pallas_taps" and c.kernel.shape[0] == 3 for c in convs)
+    assert taps.conv_final1.kernel.shape[0] == 1  # 1x1 convs stay the flat matmul
+    y = taps.conv0.conv1(torch.randn(1, 8, 16, requires_grad=True))
+    assert y.grad_fn.next_functions[0][0].name() == "PallasTapConvBackward"
     with pytest.raises(ValueError, match="conv_impl"):
         BrainEncoder.from_config(load_config(None, ["tpu.conv_impl=fft"]), loc, num_subjects=S)
     with pytest.raises(NotImplementedError, match="remat"):

@@ -1,6 +1,7 @@
 """Port kernels' plain versions against the JAX Pallas kernels (interpret
 mode on the CPU): K1 ``subject_matmul`` (forward and backward), K2
-``tap_conv_dw``, K3 ``retrieval_ranks`` and K4 ``conv_block_fused``, plus the
+``tap_conv_dw``, K3 ``retrieval_ranks``, K4 ``conv_block_fused`` and K5
+``tap_conv`` (forward and VJP), plus the
 collate functions and the kernel build module's CPU-side behaviour. The CUDA kernels themselves are
 held against these plain versions on the card (tests/test_torch_kernels_cuda.py,
 chip_smoke.py)."""
@@ -17,6 +18,8 @@ from speech_decoding_tpu.ops import scaling as jsc  # noqa: E402
 from speech_decoding_tpu.ops.pallas import conv_block as jcb  # noqa: E402
 from speech_decoding_tpu.ops.pallas.retrieval import retrieval_ranks_pallas as j_retrieval_ranks  # noqa: E402
 from speech_decoding_tpu.ops.pallas.subject_conv import subject_matmul as j_subject_matmul  # noqa: E402
+from speech_decoding_tpu.ops.pallas.tap_conv import pallas_tap_conv as j_pallas_tap_conv  # noqa: E402
+from speech_decoding_tpu.ops.pallas.tap_conv import tap_conv as j_tap_conv  # noqa: E402
 from speech_decoding_tpu.ops.pallas.tap_conv import tap_conv_dw as j_tap_conv_dw  # noqa: E402
 from speech_decoding_tpu_torch.ops import _build  # noqa: E402
 from speech_decoding_tpu_torch.ops import conv_block as tcb  # noqa: E402
@@ -32,7 +35,9 @@ from speech_decoding_tpu_torch.ops.scaling import (  # noqa: E402
     window_scale_stats,
 )
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain  # noqa: E402
-from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw, tap_conv_dw_plain  # noqa: E402
+from speech_decoding_tpu_torch.ops.tap_conv import (  # noqa: E402
+    PallasTapConv, tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -138,7 +143,8 @@ class TestBuild:
         a = _build._lib_path("subject_matmul")
         b = _build._lib_path("conv_block")
         assert a != b and a.startswith(_build.BUILD_DIR)
-        assert len({_build._lib_path(n) for n in ("tap_conv_dw", "retrieval_ranks", "subject_matmul")}) == 3
+        assert len({_build._lib_path(n) for n in ("tap_conv_dw", "retrieval_ranks", "subject_matmul", "tap_conv",
+                                                   "conv_block_train")}) == 5
         assert a == _build._lib_path("subject_matmul")
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
@@ -226,6 +232,58 @@ class TestTapConvDw:
             tap_conv_dw(torch.ones(1, 4, 3), torch.ones(1, 5, 2), 1)
         with pytest.raises(ValueError, match="dilation"):
             tap_conv_dw(torch.ones(1, 4, 3), torch.ones(1, 4, 2), 0)
+
+
+# (B, T, Cin, Cout), dilation: tests/test_pallas.py's shapes for the JAX kernel
+K5_CASES = [((3, 16, 8, 6), 2), ((4, 24, 12, 10), 1), ((4, 24, 12, 10), 4)]
+
+
+class TestTapConv:
+    """K5's plain version and ``PallasTapConv`` against the Pallas
+    ``tap_conv`` and ``pallas_tap_conv`` in interpret mode (f32; the forward
+    at rtol 1e-5 / atol 1e-5, the gradients, sums over all rows, at atol 1e-4)."""
+
+    @staticmethod
+    def _inputs(shape, d):
+        b, t, cin, cout = shape
+        rng = np.random.default_rng(b + t + d)
+        return (rng.normal(size=(b, t, cin)).astype(np.float32),
+                (0.2 * rng.normal(size=(3, cin, cout))).astype(np.float32),
+                rng.normal(size=(b, t, cout)).astype(np.float32))
+
+    @pytest.mark.parametrize("shape,d", K5_CASES)
+    def test_plain_matches_pallas(self, shape, d):
+        x, w, _ = self._inputs(shape, d)
+        want = np.asarray(j_tap_conv(jnp.asarray(x), jnp.asarray(w), d, interpret=True))
+        got = tap_conv(_t(x), _t(w), d)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("shape,d", K5_CASES)
+    def test_vjp_matches_pallas(self, shape, d):
+        x, w, gy = self._inputs(shape, d)
+        _, vjp = jax.vjp(lambda a, c: j_pallas_tap_conv(a, c, d, True), jnp.asarray(x), jnp.asarray(w))
+        jdx, jdw = (np.asarray(v) for v in vjp(jnp.asarray(gy)))
+        tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
+        PallasTapConv.apply(tx, tw, d).backward(_t(gy))
+        np.testing.assert_allclose(tx.grad.numpy(), jdx, rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(tw.grad.numpy(), jdw, rtol=1e-5, atol=1e-4)
+
+    def test_rounds_once_and_domain(self):
+        """bf16 in: the three taps add in f32 and round once; d must lie in
+        (0, T), as the JAX kernel asserts; a CPU call launches nothing."""
+        rng = np.random.default_rng(0)
+        x = _t(rng.normal(size=(2, 9, 8)).astype(np.float32)).bfloat16()
+        w = _t(rng.normal(size=(3, 8, 5)).astype(np.float32)).bfloat16()
+        before = tap_conv.launches
+        got = tap_conv(x, w, 2)
+        assert tap_conv.launches == before and got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), tap_conv_plain(x.float(), w.float(), 2).bfloat16().float().numpy())
+        for d in (0, 9, 12):
+            with pytest.raises(ValueError, match="dilation"):
+                tap_conv(x, w, d)
+        with pytest.raises(ValueError, match="shapes"):
+            tap_conv(x, w[:, :4], 1)
 
 
 class TestRetrievalRanks:
