@@ -6,7 +6,8 @@
 What it does, in order (one JSON object per line on stdout):
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. builds the six hand-written CUDA kernel libraries from
+  2. builds the six hand-written CUDA kernel libraries (seven kernels: K7
+     shares K6's source) from
      ``speech_decoding_tpu_torch/csrc`` with ``nvcc`` (one process per source,
      all started together) and times it;
   3. K1 ``subject_matmul`` against its plain version, f32 and bf16, at the
@@ -35,6 +36,11 @@ What it does, in order (one JSON object per line on stdout):
      outputs, the (2, C) sums, dW and db; two runs must give the same bits;
      then one block's ``conv_block_train`` forward and backward against the
      module ``ConvBlock``'s train forward with autograd, in f32;
+  4c. K7 ``f31`` (F3 of block k merged with F1 of block k+1) against
+     ``f31_plain``: bf16 at (64, 360, 320) and f32 at B=4 for every
+     boundary (k_next 1..4), ragged B=3, T=37 at d0n=16, f32 and bf16; at
+     every one of those shapes against K6's own F3 then F1 (out and y0n
+     bitwise, s0n rtol 1e-6); two runs must give the same bits;
   5. the whole encode at full width (S=27, C=208, T=360, D1=270, D2=320,
      F=1024, K=32, random BatchNorm running statistics): the fused serving
      path (K1 + five K4 launches) against the module path, f32 and bf16;
@@ -75,8 +81,28 @@ What it does, in order (one JSON object per line on stdout):
      ``ConvBlock`` forward and backward) and K3 at B=2048: kernel, plain,
      library yardstick, bound; K3 and its yardstick with and without the
      preparation (cast, norms, diagonal);
-  12. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6), the card line
-     again, and last ``{"ok": true, "device": {...}}``.
+  12. the K7 tool path: ``speech_decoding_tpu_torch.tools.bench_cross_block_merge``
+     (equivalence, then the split pair and the merged kernel timed), re-emitted
+     as one ``tool`` line with K7's plain time and bound;
+  13. the training loop, each path with every counter set to 0 just before
+     and read just after: ``trainer``, the port's ``tools/scale_run`` at the
+     flagship (4 epochs of 100 updates over a device-resident pool of 512 +
+     64 held-out segments, ``scan_steps`` 8, checkpoints in a temporary
+     directory, keep 2, best by testTop10acc): the learning gate of
+     tests/test_learning_gate.py must clear, launches K1 2 a step + 1 an
+     eval, K2 15 a step, K3 1 an epoch; ``trainer_fused``: one epoch of 12
+     steps with ``tpu.fused_train_blocks=true`` on host batches (pinned
+     copies): each K6 stage 5 a step; ``preemption``: a real SIGTERM from
+     ``PreemptionGuard(inject_after_steps=2)`` stops an epoch after 16
+     steps, the state is saved, a fresh Trainer resumes it bit for bit
+     (step, parameters, BN statistics, temperature, Adam moments) and runs
+     one more epoch; ``checkpoint_serve``: ``SpeechDecoder.from_checkpoint
+     (best=True)`` decodes the 64 held-out segments against their Y (K1 and
+     K4), its top-10 hit rate within 2/64 of the same orientation computed
+     through the eval path from the same checkpoint;
+  14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, each with its
+     launches by path), the card line again, and last ``{"ok": true,
+     "device": {...}}``.
 
 Any mismatch or exception exits non-zero without the last line; so does a
 machine without a CUDA device, or a directory without the port package.
@@ -88,8 +114,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -214,13 +243,18 @@ def main() -> int:
             conv_block_fused, conv_block_plain, dilations, prepare_fused_stack,
         )
         from speech_decoding_tpu_torch.ops import retrieval as k3_module
-        from speech_decoding_tpu_torch.ops.retrieval import near_tie_rows, retrieval_ranks, retrieval_ranks_plain
+        from speech_decoding_tpu_torch.ops.retrieval import (
+            near_tie_rows, retrieval_metrics_kernel, retrieval_ranks, retrieval_ranks_plain,
+        )
         from speech_decoding_tpu_torch.ops.scaling import window_scale_stats
         from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain
         from speech_decoding_tpu_torch.ops.tap_conv import tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain
         from speech_decoding_tpu_torch.serving import DecoderServer, decode_request
+        from speech_decoding_tpu_torch.tools import bench_cross_block_merge as merge_tool
+        from speech_decoding_tpu_torch.tools import scale_run
         from speech_decoding_tpu_torch.training import (
-            create_train_state, make_chunked_eval, make_eval_step, make_train_step,
+            CheckpointManager, PreemptionGuard, Trainer, create_train_state, make_chunked_eval, make_eval_step,
+            make_train_step,
         )
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable here ({e})", file=sys.stderr)
@@ -244,7 +278,7 @@ def main() -> int:
     # every path's run sets all launch counters to 0 just before and reads them all just after
     counted = {"subject_matmul": subject_matmul, "conv_block_fused": conv_block_fused,
                "tap_conv_dw": tap_conv_dw, "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv,
-               **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()}}
+               **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()}, "conv_block_train.F31": cbt.f31}
 
     def reset_counts():
         for fn in counted.values():
@@ -254,7 +288,7 @@ def main() -> int:
         return {name: fn.launches for name, fn in counted.items()}
 
     def expect(**nonzero):
-        """Launch counts with every counter 0 except those named (K6's stages as F1=...)."""
+        """Launch counts with every counter 0 except those named (K6's stages as F1=..., K7 as F31=...)."""
         want = dict.fromkeys(counted, 0)
         for name, n in nonzero.items():
             want[name if name in want else f"conv_block_train.{name}"] = n
@@ -461,6 +495,51 @@ def main() -> int:
         emit(check=f"K6 {str(dtype)[6:]} all six stages deterministic", shape=[B, T, D2, D2], k=2,
              bitwise_equal=True)
     del ins
+
+    # -- 4c. K7 vs plain and vs the split pair ----------------------------------
+    # f31 against f31_plain (activations as K6's: a flipped bf16 rounding, 1e-2
+    # + 1e-2 relative; s0n at 1e-3 (bf16) or 1e-4 (f32) of its largest entry),
+    # and against K6's own F3 then F1 on the same inputs: out and y0n bitwise
+    # (the same chunk walk and tap order), s0n within rtol 1e-6
+    k7_err = {}
+
+    def k7_check(tag, b_, t_, k_next, dtype):
+        ins = cbt.stage_inputs(b_, t_, D2, D2, k_next, dtype, dev, gk6)
+        args7 = (*ins["F3"], *ins["F1"][1:3], k_next)  # block k's F3, block k_next's conv0
+        got, want = cbt.f31(*args7), cbt.f31_plain(*args7)
+        rel = 1e-3 if dtype == bf16 else 1e-4
+        errs = [compare(f"K7 {tag} output {i}", a, b, *((1e-2, 1e-2) if a.dtype == bf16 else
+                                                        (rel * float(b.abs().max()), rel)), show=False)
+                for i, (a, b) in enumerate(zip(got, want))]
+        out_s = cbt.f3(*args7[:5])
+        y0n_s, s0n_s = cbt.f1(out_s, args7[5], args7[6], k_next)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], out_s) and torch.equal(got[1], y0n_s)):
+            raise AssertionError(f"K7 {tag} k_next={k_next}: out or y0n differs from the split F3 + F1")
+        if not torch.allclose(got[2], s0n_s, rtol=1e-6, atol=0.0):
+            raise AssertionError(f"K7 {tag} k_next={k_next}: s0n differs from the split pair's beyond rtol 1e-6")
+        name = f"K7 f31 k_next={k_next} {tag} {(b_, t_, D2)}"
+        emit(check=name, d0n=dilations(k_next)[0], max_abs_err=max(errs),
+             max_abs_ref={n: float(b.abs().max()) for n, b in zip(("out", "y0n", "s0n"), want)},
+             vs_plain_bf16="atol 1e-2 rtol 1e-2",
+             vs_plain_f32=f"{rel} of the largest entry, rtol {rel}", vs_split_pair="out, y0n bitwise; s0n rtol 1e-6",
+             s0n_bitwise_equal_to_split=bool(torch.equal(got[2], s0n_s)))
+        k7_err[name] = max(errs)
+        return args7
+
+    for k_next in range(1, 5):
+        k7_check("bf16", B, T, k_next, bf16)
+        k7_check("f32", 4, T, k_next, f32)
+    for dtype in (f32, bf16):  # d0n=16 against T=37: the window passes both edges of the recording
+        k7_check(f"{str(dtype)[6:]} ragged", 3, 37, 2, dtype)
+    for dtype in (bf16, f32):
+        args7 = k7_check(f"{str(dtype)[6:]} repeat", B, T, 2, dtype)
+        first, second = cbt.f31(*args7), cbt.f31(*args7)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"K7 {dtype}: two runs on the same inputs differ")
+        emit(check=f"K7 {str(dtype)[6:]} deterministic", shape=[B, T, D2], k_next=2, bitwise_equal=True)
+    del args7, first, second
 
     # one block: conv_block_train's forward and backward against the module
     # ConvBlock's train forward with autograd, f32 on the card (the same
@@ -942,9 +1021,181 @@ def main() -> int:
          launches_per_eval=eval_launches["retrieval_ranks"])
     del Z, Y, prepared
 
-    # -- 12. summary ---------------------------------------------------------
+    # -- 12. the K7 tool path: the port's bench_cross_block_merge --------------------
+    # its equivalence check and its timings (split F3 + F1 against the merged
+    # kernel, the best of 3 rounds of 50); the counters span the whole run
+    torch.cuda.synchronize()
+    reset_counts()
+    tool = merge_tool.run("cuda")
+    tool_launches = read_counts()
+    if min(tool_launches[f"conv_block_train.{st}"] for st in ("F31", "F3", "F1")) < 1:
+        raise AssertionError(f"a kernel of the tool path never launched: {tool_launches}")
+    x7 = merge_tool.make_inputs(B, T, D2, bf16, dev)
+    args7 = (x7["y1"], x7["mi1"], x7["gb1"], x7["w2"], x7["b2"], x7["w0n"], x7["b0n"], tool["k_next"])
+    k7_plain = time_ms(lambda: cbt.f31_plain(*args7), reps=5)
+    k7_flops = conv_flops(D2, 2 * D2, 2) + conv_flops(D2, D2, tool["d0n"])
+    k7_bytes = nbytes(*args7[:7]) + 2 * B * T * D2 * 2 + 2 * D2 * 4
+    k7_bound, k7_by = bound_ms(k7_flops, k7_bytes, peaks, "bf16")
+    emit(tool="speech_decoding_tpu_torch.tools.bench_cross_block_merge", shape=tool["shape"], dtype=tool["dtype"],
+         d0n=tool["d0n"], split_ms=tool["split_ms"], merged_ms=tool["merged_ms"],
+         saving_us_per_boundary=tool["saving_us_per_boundary"], saving_us_per_step=tool["saving_us_per_step"],
+         forward_boundaries_per_step=tool["forward_boundaries_per_step"], plain_ms=k7_plain, bound_ms=k7_bound,
+         bound_by=k7_by, gflop=k7_flops / 1e9, mbytes=k7_bytes / 1e6, equal=tool["out_y0n_bitwise_equal"],
+         s0n_bitwise_equal=tool["s0n_bitwise_equal"], launches=tool_launches, timing=tool["timing"])
+    del x7, args7
+
+    # -- 13. the training loop: the port's scale run at the flagship ---------------------
+    # Trainer.run_epoch over a device-resident world (scan_steps 8), eval of
+    # the 64 held-out segments every epoch, checkpoints in a temporary
+    # directory (keep 2, best by testTop10acc); the learning gate of
+    # tests/test_learning_gate.py must clear
+    SR_EPOCHS, SR_UPDATES, SR_POOL = 4, 100, 512
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_checkpoints_")
+    try:
+        world = scale_run.World(SR_POOL, scale_run.FLAGSHIP, dev, args.seed)
+        ckpts = CheckpointManager(os.path.join(ckdir, "run"), keep=2, track_metric="testTop10acc")
+        torch.cuda.synchronize()
+        reset_counts()
+        summary, trainer, _ = scale_run.run(SR_EPOCHS, SR_UPDATES, SR_POOL, device="cuda", checkpoints=ckpts,
+                                            world=world, seed=args.seed)
+        torch.cuda.synchronize()
+        trainer_launches = read_counts()
+        steps = SR_EPOCHS * SR_UPDATES
+        hist = trainer.history
+        emit(phase="trainer", tool="speech_decoding_tpu_torch.tools.scale_run",
+             config="flagship: B=64 C=208 T=360 D1=270 D2=320 F=1024 K=32 S=27, bf16, channels-last, "
+                    "conv_impl=gemm_pdw, scan_steps 8, lr 3e-4, device-resident pool",
+             epochs=SR_EPOCHS, updates=SR_UPDATES, train_pool=SR_POOL, test_segments=scale_run.N_TEST,
+             steps=trainer.state.step, steady_steps_per_s=summary["steady_steps_per_sec"],
+             steady_segments_per_s=summary["steady_segments_per_sec"],
+             segments_per_s_by_epoch=[h["train_segments_per_sec"] for h in hist],
+             epoch_seconds_host_clock=summary["epoch_seconds"], last_epoch_seconds=trainer.last_epoch_seconds,
+             train_loss=[h["train_loss"] for h in hist], testTop10acc=[h["testTop10acc"] for h in hist],
+             chance_top10=summary["chance_top10"], gate=summary["gate"], wall_s=summary["wall_s"],
+             checkpoints={"latest": ckpts.latest_epoch(), "best": ckpts.best_epoch()}, launches=trainer_launches)
+        want = expect(subject_matmul=2 * steps + SR_EPOCHS, tap_conv_dw=15 * steps, retrieval_ranks=SR_EPOCHS)
+        if trainer_launches != want:
+            raise AssertionError(f"trainer launches: {trainer_launches}, expected {want}")
+        if not all(summary["gate"].values()) or not all(np.isfinite([h["train_loss"] for h in hist])):
+            raise AssertionError(f"the scale run did not learn: {summary['gate']}, {[h['train_loss'] for h in hist]}")
+
+        # -- 13b. the fused Trainer (tpu.fused_train_blocks=true reaches K6) ------------
+        # one short epoch of host batches (numpy, f32), which the Trainer
+        # moves through pinned memory, one step a dispatch
+        host = []
+        for i in range(4):
+            b_ = world.batch(np.random.default_rng(10 + i).choice(SR_POOL, B, replace=False))
+            host.append({k: v.float().cpu().numpy() if v.is_floating_point() else v.numpy() for k, v in b_.items()})
+        args_f = scale_run.flagship_args(1, ["tpu.fused_train_blocks=true", "tpu.scan_steps=1"])
+        fused_tr = Trainer(scale_run.make_encoder(args_f, scale_run.FLAGSHIP, args.seed + 1), args_f, device="cuda")
+        n_fused = 12
+        torch.cuda.synchronize()
+        reset_counts()
+        out_f = fused_tr.run_epoch(0, [host[i % 4] for i in range(n_fused)], world.test_batch())
+        torch.cuda.synchronize()
+        fused_trainer_launches = read_counts()
+        emit(phase="trainer_fused", steps=fused_tr.state.step, host_batches="numpy f32, pinned, non_blocking",
+             train_loss=out_f["train_loss"], testTop10acc=out_f["testTop10acc"],
+             segments_per_s=out_f["train_segments_per_sec"], epoch_seconds=fused_tr.last_epoch_seconds,
+             launches=fused_trainer_launches)
+        want = expect(subject_matmul=2 * n_fused + 1, tap_conv_dw=15 * n_fused, retrieval_ranks=1,
+                      **dict.fromkeys(cbt.STAGES, 5 * n_fused))
+        if fused_trainer_launches != want or not np.isfinite(out_f["train_loss"]):
+            raise AssertionError(f"trainer_fused launches: {fused_trainer_launches}, expected {want}; {out_f}")
+        del host, fused_tr
+
+        # -- 13c. the preemption drill ---------------------------------------------
+        # a real SIGTERM after 2 dispatches (16 steps) of a 24-step epoch: the
+        # epoch stops, eval is skipped, the state is saved; a fresh Trainer
+        # resumes it bit for bit and runs one more epoch to its end
+        args_p = scale_run.flagship_args(2)
+        ck_p = CheckpointManager(os.path.join(ckdir, "preempt"), keep=2)
+        pre_tr = Trainer(scale_run.make_encoder(args_p, scale_run.FLAGSHIP, args.seed + 2), args_p,
+                         checkpoints=ck_p, device="cuda")
+        handler = signal.getsignal(signal.SIGTERM)
+        rng_p = np.random.default_rng(2)
+        torch.cuda.synchronize()
+        reset_counts()
+        pre_tr.preemption = PreemptionGuard(inject_after_steps=2).install()
+        try:
+            out_p = pre_tr.run_epoch(0, world.train_batches(rng_p, 24), world.test_batch())
+        finally:
+            pre_tr.preemption.uninstall()
+        if not (pre_tr.preempted and "test_loss" not in out_p and pre_tr.state.step == 16
+                and ck_p.latest_epoch() == 0 and signal.getsignal(signal.SIGTERM) is handler):
+            raise AssertionError(f"preemption: step {pre_tr.state.step}, saved {ck_p.latest_epoch()}, {out_p}")
+        res_tr = Trainer(scale_run.make_encoder(args_p, scale_run.FLAGSHIP, args.seed + 3), args_p,
+                         checkpoints=ck_p, device="cuda")
+        a_, b_ = pre_tr.state, res_tr.state
+        sa, sb = a_.optimizer.state_dict()["state"], b_.optimizer.state_dict()["state"]
+        same = {
+            "step": a_.step == b_.step and res_tr.start_epoch == 1,
+            "parameters_and_bn_statistics": all(torch.equal(x, y) for x, y in
+                                                zip(a_.encoder.state_dict().values(), b_.encoder.state_dict().values())),
+            "temperature": torch.equal(a_.clip.temp, b_.clip.temp),
+            "adam_moments": sa.keys() == sb.keys() and all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i]),
+        }
+        if not all(same.values()):
+            raise AssertionError(f"the resumed state differs from the preempted one: {same}")
+        out_r = res_tr.run_epoch(1, world.train_batches(rng_p, 24), world.test_batch())
+        torch.cuda.synchronize()
+        preempt_launches = read_counts()
+        emit(phase="preemption", signal="SIGTERM from PreemptionGuard(inject_after_steps=2) after 2 dispatches",
+             stopped_at_step=16, checkpoint_epoch=0, resumed_start_epoch=res_tr.start_epoch, bitwise_equal=same,
+             resumed_epoch_steps=res_tr.state.step - 16, resumed_train_loss=out_r["train_loss"],
+             resumed_testTop10acc=out_r["testTop10acc"], launches=preempt_launches)
+        want = expect(subject_matmul=2 * (16 + 24) + 1, tap_conv_dw=15 * (16 + 24), retrieval_ranks=1)
+        if preempt_launches != want or res_tr.state.step != 40 or not np.isfinite(out_r["train_loss"]):
+            raise AssertionError(f"preemption launches {preempt_launches}, expected {want}; step {res_tr.state.step}")
+        del pre_tr, res_tr, a_, b_, sa, sb
+
+        # -- 13d. serving the best checkpoint -----------------------------------------
+        # SpeechDecoder.from_checkpoint(best=True) on the scale run's
+        # checkpoints, a bank of the 64 held-out Y, the 64 held-out X decoded
+        # through the serving path (K1 and K4). The trainer's testTop10acc
+        # ranks brain embeddings per audio segment; a decode ranks the bank
+        # per brain segment. So the served hit rate is held, within 2/64 (a
+        # near-tie may flip between the module and the K4 encode in bf16),
+        # against the same orientation computed through the eval path from
+        # the same checkpoint, and its gap to testTop10acc is reported
+        test = world.test_batch()
+        best = ckpts.best_epoch()
+        best_top10 = trainer.history[best]["testTop10acc"]
+        args_s = scale_run.flagship_args(1)
+        decoder = SpeechDecoder.from_checkpoint(
+            ckpts.directory, scale_run.make_encoder(args_s, scale_run.FLAGSHIP, args.seed + 4),
+            bank=test["Y"].transpose(1, 2).float(), best=True, device="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        _, ids_served = decoder.decode(test["X"], test["subject_idxs"], k=10)
+        serve_ck_launches = read_counts()
+        served = float(np.mean([i in row for i, row in enumerate(ids_served)]))
+        st_eval = create_train_state(scale_run.make_encoder(args_s, scale_run.FLAGSHIP, args.seed + 5),
+                                     device="cuda")
+        st_eval, _ = ckpts.restore_for_eval(st_eval, best=True)
+        ev = {k: float(v) for k, v in make_eval_step()(st_eval, test).items()}
+        with torch.no_grad():
+            Z_eval = st_eval.encoder(test["X"], test["subject_idxs"])
+        _, eval_brain_to_audio = retrieval_metrics_kernel(test["Y"], Z_eval, ks=(1, 10))
+        eval_brain_to_audio = float(eval_brain_to_audio)
+        emit(phase="checkpoint_serve", best_epoch=best, checkpoint_testTop10acc=best_top10,
+             eval_path_testTop10acc=ev["top10"], served_top10=served,
+             eval_path_brain_to_audio_top10=eval_brain_to_audio, gap_served_vs_same_orientation=served -
+             eval_brain_to_audio, gap_served_vs_testTop10acc=served - best_top10, tolerance=2 / 64,
+             launches=serve_ck_launches)
+        if serve_ck_launches != expect(subject_matmul=1, conv_block_fused=5):
+            raise AssertionError(f"checkpoint_serve launches: {serve_ck_launches}")
+        if abs(ev["top10"] - best_top10) > 1 / 64 or abs(served - eval_brain_to_audio) > 2 / 64:
+            raise AssertionError(f"served {served} / eval {ev['top10']} against the checkpoint's {best_top10}")
+        del world, trainer, decoder, st_eval, test, Z_eval
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # -- 14. summary ---------------------------------------------------------
     paths = {"serve": launches, "train": train_launches, "eval": eval_launches, "fused_train": fused_launches,
-             "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"]}
+             "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"], "tool": tool_launches,
+             "trainer": trainer_launches, "trainer_fused": fused_trainer_launches, "preemption": preempt_launches,
+             "checkpoint_serve": serve_ck_launches}
 
     def launches_of(kernel):
         return sum(p[kernel] for p in paths.values())
@@ -1003,6 +1254,18 @@ def main() -> int:
          "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6_by,
          "library_ms": None, "module_blocks_ms": k6["module_ms"],
          "timed": "the six stages of all five blocks, one step's forward and backward"},
+        {"name": "f31", "route": "cuda",
+         "source": "speech_decoding_tpu_torch/csrc/conv_block_train.cu",
+         "header": "speech_decoding_tpu_torch/csrc/tap3.cuh",
+         "replaces": "tools/bench_cross_block_merge.py:43",
+         "also_replaces": "tools/bench_cross_block_merge.py:109",
+         "launches": launches_of("conv_block_train.F31"),
+         "launches_by_path": {k: p["conv_block_train.F31"] for k, p in paths.items()},
+         "max_abs_err": max(k7_err.values()),
+         "ms": tool["merged_ms"], "plain_ms": k7_plain, "bound_ms": k7_bound, "bound_by": k7_by,
+         "library_ms": None, "split_pair_ms": tool["split_ms"],
+         "library": "none: no single PyTorch call computes it; the split K6 pair F3 + F1 is its yardstick",
+         "timed": "one block boundary (k_next=1, d0n=4) at the flagship, by the port's bench_cross_block_merge"},
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,23 @@
 // with k >= 1 is 56.6 GFLOP forward (57 us at 989 TFLOP/s bf16) and 141.6
 // GFLOP backward, of which the K2 launches are 42.5.
 //
+// K7 (cbt_f31): F3 of block k fused with F1 of block k+1, so that `out` is
+// not read back from device memory by the next conv. Replaces the Pallas TPU
+// kernel _f31_kernel of tools/bench_cross_block_merge.py (built at :109,
+// measured there against the split pair F3 then F1). The next conv reads
+// every channel of `out` at t +- d0n, so one 64 x 64 tile of `out` cannot
+// feed it: a K7 block owns 64 times of one recording across all C channels.
+// It recomputes F3 over its window of 64 + 2 d0n rows (two 64-row passes of
+// the conv tile, so F3's work doubles for every d0n <= 32), keeps that window
+// of `out` in shared memory in dt (zero outside the recording), writes its
+// own 64 rows to `out` (the backward still needs them), then runs F1's conv
+// on the window. Both convs go through tap3::Tile with the split kernels'
+// chunk walk and tap order, and the sums through the same per-(recording,
+// tile) partials and reduce_parts, so out, y0n and s0n equal the split
+// pair's bit for bit. Bound: operations, as the split pair (28.3 + 14.2
+// GFLOP at the flagship), and it saves one B*T*C read of `out` (14.7 MB in
+// bf16) against the split pair.
+//
 // C interface (ctypes): pointers and the stream as void*; each entry returns
 // the first non-zero cudaError_t of its launches. `part` is f32 scratch of
 // B * ceil(T / 64) * 2 * C elements.
@@ -89,10 +106,14 @@ template <typename T>
 struct F3 {
   static constexpr bool kStats = false;
   const float* b2; T* out; int T_, C;
-  __device__ void operator()(int b, int t, int c, float a, float g, float&, float&) const {
+  // out = dt(dt(a + b2[c]) * dt(sigmoid(g + b2[C + c]))): F3's and K7's GLU
+  __device__ static T glu(float a, float g, const float* b2, int C, int c) {
     a += b2[c];
     g += b2[C + c];
-    out[((size_t)b * T_ + t) * C + c] = from_f<T>(rnd<T>(a) * rnd<T>(tap3::sigmoid(g)));
+    return from_f<T>(rnd<T>(a) * rnd<T>(tap3::sigmoid(g)));
+  }
+  __device__ void operator()(int b, int t, int c, float a, float g, float&, float&) const {
+    out[((size_t)b * T_ + t) * C + c] = glu(a, g, b2, C, c);
   }
 };
 
@@ -255,13 +276,129 @@ int b3(const void* du0, const void* y0, const void* mi0, const void* g0c, const 
                                  B3c<T>{skip ? (const T*)dy0 : nullptr, (T*)dx, Tlen, Cin}, nullptr, st);
 }
 
+// K7's shared memory: the window of `out` (TM + 2 d0n rows of ldo elements,
+// zero outside the recording and past C), the staging area of the conv tile
+// (F3's input window and weights, then F1's weights), the tile's f32
+// accumulators and the sums' exchange.
+template <typename T>
+struct F31Smem {
+  using L3 = tap3::Layout<T, 2>;
+  // bf16: rows of a multiple of 32 bytes keep wmma's fragment loads aligned
+  __host__ __device__ static int ldo(int C) { return (C + 31) / 32 * 32 + (L3::TC ? 16 : 1); }
+  __host__ __device__ static size_t win_bytes(int C, int d0n) {
+    return ((size_t)(TM + 2 * d0n) * ldo(C) * sizeof(T) + 127) / 128 * 128;
+  }
+  __host__ __device__ static size_t bytes(int C, int d0n) {
+    return win_bytes(C, d0n) + L3::stage_bytes(2) + (size_t)TM * L3::LDC * sizeof(float) + 4 * TN * sizeof(float);
+  }
+};
+
+// Grid (ntile, B): one block owns times t0 + [0, TM) of recording b across
+// all C channels. F3 runs over the window t0 - d0n + [0, TM + 2 d0n) in two
+// TM-row passes, both GLU halves of every 64-channel tile, into shared
+// memory (the tile's own rows also to `out`); then F1 of the next block runs
+// its conv on that window, every output tile, with F1's epilogue.
+template <typename T>
+__global__ void __launch_bounds__(tap3::THREADS)
+f31_kernel(const T* __restrict__ y1, const float* mi1, const float* gb1, const T* __restrict__ w2, const float* b2,
+           const T* __restrict__ w0n, const float* b0n, T* out, T* y0n, float* __restrict__ part, tap3::Conv g3,
+           tap3::Conv g1) {
+  using L3 = tap3::Layout<T, 2>;
+  using L1 = tap3::Layout<T, 1>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int C = g1.Cout, Tlen = g1.T, d0n = g1.d, W = TM + 2 * d0n, ldo = F31Smem<T>::ldo(C);
+  T* win = reinterpret_cast<T*>(smem);
+  unsigned char* stage = smem + F31Smem<T>::win_bytes(C, d0n);
+  T* xs = reinterpret_cast<T*>(stage);
+  T* ws = xs + L3::xs_elems(g3.d);
+  float* cs = reinterpret_cast<float*>(stage + L3::stage_bytes(g3.d));
+  float* red = cs + TM * L3::LDC;
+  const int t0 = blockIdx.x * TM, b = blockIdx.y, tid = threadIdx.x, base = t0 - d0n;
+  const int c = tid % TN, h = tid / TN;
+
+  for (int i = tid; i < W * (ldo - C); i += tap3::THREADS)  // the last chunk of F1 reads past C
+    win[(size_t)(i / (ldo - C)) * ldo + C + i % (ldo - C)] = from_f<T>(0.f);
+
+  // F3 of block k into the window; rows outside [0, T) are zero, not
+  // GLU(conv2(GELU(BN(0)))), as the split F1 reads them
+  const tap3::BnGelu<T> pro{mi1, gb1, C};
+  for (int r0 = base; r0 < t0 + TM + d0n; r0 += TM) {
+    for (int n0 = 0; n0 < C; n0 += TN) {
+      tap3::conv3_tile<T, 2>(xs, ws, cs, y1, w2, g3, pro, b, r0, n0, nullptr);
+      const int co = n0 + c;
+      if (co < C) {
+        for (int r = h * (TM / 2); r < (h + 1) * (TM / 2) && r0 + r - base < W; ++r) {
+          const int t = r0 + r;
+          T v = from_f<T>(0.f);
+          if (t >= 0 && t < Tlen) {
+            v = F3<T>::glu(cs[(size_t)r * L3::LDC + c], cs[(size_t)r * L3::LDC + TN + c], b2, C, co);
+            if (t >= t0 && t < t0 + TM) out[((size_t)b * Tlen + t) * C + co] = v;
+          }
+          win[(size_t)(t - base) * ldo + co] = v;
+        }
+      }
+    }
+  }
+
+  // F1 of block k+1 from the window (its skip is `out`, read back from the
+  // rows this block just wrote); per-block sums as the split F1 takes them
+  const F1<T> epi{b0n, out, y0n, Tlen, C};
+  for (int n0 = 0; n0 < C; n0 += TN) {
+    tap3::Tile<T, 1> tile;
+    tile.zero();
+    for (int k0 = 0; k0 < C; k0 += L1::KC) {
+      __syncthreads();  // the window is complete; everyone is done with the previous chunk
+      tap3::load_weights<T, 1>(ws, w0n, g1, n0, k0);
+      __syncthreads();
+      tile.mma(win + k0, ldo, ws, d0n);
+    }
+    tile.store(cs);
+    __syncthreads();
+    const int co = n0 + c;
+    float s0 = 0.f, s1 = 0.f;
+    if (co < C) {
+      for (int r = h * (TM / 2); r < (h + 1) * (TM / 2) && t0 + r < Tlen; ++r)
+        epi(b, t0 + r, co, cs[(size_t)r * L1::LDC + c], 0.f, s0, s1);
+    }
+    red[(h * 2) * TN + c] = s0;
+    red[(h * 2 + 1) * TN + c] = s1;
+    __syncthreads();
+    if (h == 0 && co < C) {
+      float* p = part + (size_t)(b * g1.ntile + blockIdx.x) * 2 * C;
+      p[co] = red[c] + red[2 * TN + c];
+      p[C + co] = red[TN + c] + red[3 * TN + c];
+    }
+  }
+}
+
+template <typename T>
+int f31(const void* y1, const void* mi1, const void* gb1, const void* w2, const void* b2, const void* w0n,
+        const void* b0n, void* out, void* y0n, float* part, float* s0n, int B, int Tlen, int C, int d0n,
+        cudaStream_t st) {
+  const tap3::Conv g3 = tap3::make_conv(B, Tlen, C, C, 2 * C, C, 2, y1, w2);
+  const tap3::Conv g1 = tap3::make_conv(B, Tlen, C, C, C, 0, d0n, out, w0n);
+  const size_t smem = F31Smem<T>::bytes(C, d0n);
+  if (smem > tap3::kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = f31_kernel<T>;
+  CHECK((int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  if (C == 0) return (int)cudaSuccess;
+  if (B > 0 && Tlen > 0) {
+    kernel<<<dim3(g1.ntile, B), tap3::THREADS, smem, st>>>(
+        (const T*)y1, (const float*)mi1, (const float*)gb1, (const T*)w2, (const float*)b2, (const T*)w0n,
+        (const float*)b0n, (T*)out, (T*)y0n, part, g3, g1);
+    CHECK((int)cudaGetLastError());
+  }
+  return tap3::reduce(part, s0n, B * g1.ntile, 2 * C, st);
+}
+
 }  // namespace
 
-// Shapes: x (B, T, Cin); y0, y1, out, du1, du0, dy1, dy0, h0, h1 (B, T, C);
+// Shapes: x (B, T, Cin); y0, y1, out, du1, du0, dy1, dy0, h0, h1, y0n (B, T, C);
 // dy2 (B, T, 2C); w0 (3, Cin, C), w1 (3, C, C), w2 (3, C, 2C) and the
 // transposed w0t (3, C, Cin), w1t (3, C, C), w2t (3, 2C, C), all in dt; b0,
 // b1 (C,), b2 (2C,), mi/gb (2, C) [mean; inv] / [scale; bias], g1c/g0c (3, C)
-// [g; c1; c2] f32; sums s0, s1, s (2, C), db2 (2C,), db1, db0 (C,) f32.
+// [g; c1; c2] f32; sums s0, s1, s, s0n (2, C), db2 (2C,), db1, db0 (C,) f32;
+// K7 (cbt_f31) takes block k+1's w0n (3, C, C) in dt, b0n (C,) f32 and d0n.
 #define ENTRIES(SUF, T)                                                                                          \
   extern "C" int cbt_f1_##SUF(const void* x, const void* w0, const void* b0, void* y0, void* part, void* s0,      \
                               int B, int Tlen, int Cin, int C, int d0, int skip, void* st) {                     \
@@ -292,6 +429,12 @@ int b3(const void* du0, const void* y0, const void* mi0, const void* g0c, const 
                               int skip, void* st) {                                                              \
     return b3<T>(du0, y0, mi0, g0c, w0t, dy0, dx, (float*)part, (float*)db0, B, Tlen, Cin, C, d0, skip,         \
                  (cudaStream_t)st);                                                                              \
+  }                                                                                                              \
+  extern "C" int cbt_f31_##SUF(const void* y1, const void* mi1, const void* gb1, const void* w2, const void* b2,  \
+                               const void* w0n, const void* b0n, void* out, void* y0n, void* part, void* s0n,     \
+                               int B, int Tlen, int C, int d0n, void* st) {                                      \
+    return f31<T>(y1, mi1, gb1, w2, b2, w0n, b0n, out, y0n, (float*)part, (float*)s0n, B, Tlen, C, d0n,         \
+                  (cudaStream_t)st);                                                                             \
   }
 
 ENTRIES(f32, float)

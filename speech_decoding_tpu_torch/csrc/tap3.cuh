@@ -1,5 +1,5 @@
-// The dilated 3-tap 'SAME' conv tile that K5 (tap_conv.cu) and all six K6
-// stages (conv_block_train.cu) are built on:
+// The dilated 3-tap 'SAME' conv tile that K5 (tap_conv.cu), all six K6
+// stages and K7 (conv_block_train.cu) are built on:
 //   acc[b, t, g*Cout + c] = sum_j sum_k pro(x[b, t + (j - 1) d, k]) * W[j, k, g*goff + c]
 // with rows of the (transformed) input outside [0, T) read as zero, f32
 // accumulation, then a per-element epilogue that also yields up to two
@@ -201,6 +201,137 @@ __device__ void load_weights(T* ws, const T* __restrict__ w, const Conv& g, int 
     ws[(size_t)row * L::LDW + n] = (k < g.Cin && c < g.Cout)
         ? w[((size_t)j * g.Cin + k) * g.Wcols + (n / TN) * g.goff + c] : from_f<T>(0.f);
   }
+}
+
+// K7's form of the tile: the accumulators of one TM x (NG * TN) output tile
+// and the multiply of one staged chunk, acc += sum_j A_j W_j, where A_j's row
+// r is row r + j*d of `a` (row stride lda: a staged window, or any (TM +
+// 2d)-row array in shared memory) and W_j the chunk's tap-j weight rows staged
+// by load_weights. It is conv3_kernel's loop, operation for operation (the
+// same fragments, chunk walk, tap order and 16-deep steps), so K7 and the
+// split K6 kernels give the same bits. conv3_kernel keeps its own inline
+// copy: routed through this struct, K6's F1 kernel ran slower on the card.
+template <typename T, int NG, bool TC = Layout<T, NG>::TC>
+struct Tile;
+
+template <typename T, int NG>
+struct Tile<T, NG, true> {
+  using L = Layout<T, NG>;
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[NG][2][2];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int f = 0; f < 2; ++f) nvcuda::wmma::fill_fragment(acc[q][i][f], 0.f);
+  }
+
+  __device__ __forceinline__ void mma(const T* a, int lda, const T* ws, int d) {
+    using namespace nvcuda;
+    const int warp = threadIdx.x / 32, wr = warp / 2, wc = warp % 2;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int ks = 0; ks < L::KC; ks += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(af[i], a + (size_t)(wr * 32 + i * 16 + j * d) * lda + ks, lda);
+#pragma unroll
+        for (int q = 0; q < NG; ++q)
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
+            wmma::load_matrix_sync(bfr, ws + (size_t)(j * L::KC + ks) * L::LDW + q * TN + wc * 32 + f * 16, L::LDW);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[q][i][f], af[i], bfr, acc[q][i][f]);
+          }
+      }
+    }
+  }
+
+  // the tile to cs (TM rows of stride L::LDC; group q at columns q * TN)
+  __device__ __forceinline__ void store(float* cs) {
+    const int warp = threadIdx.x / 32, wr = warp / 2, wc = warp % 2;
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+          nvcuda::wmma::store_matrix_sync(cs + (size_t)(wr * 32 + i * 16) * L::LDC + q * TN + wc * 32 + f * 16,
+                                          acc[q][i][f], L::LDC, nvcuda::wmma::mem_row_major);
+  }
+};
+
+template <typename T, int NG>
+struct Tile<T, NG, false> {
+  using L = Layout<T, NG>;
+  float acc[NG][8][4];  // rows tr*8 + i, columns tc + 16*c of each group
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[q][i][c] = 0.f;
+  }
+
+  __device__ __forceinline__ void mma(const T* a, int lda, const T* ws, int d) {
+    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+    for (int j = 0; j < 3; ++j) {
+      const T* xr = a + (size_t)(tr * 8 + j * d) * lda;
+      const T* wr = ws + (size_t)j * L::KC * L::LDW + tc;
+#pragma unroll 4
+      for (int kk = 0; kk < L::KC; ++kk) {
+        float av[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) av[i] = to_f(xr[i * lda + kk]);
+#pragma unroll
+        for (int q = 0; q < NG; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float wv = to_f(wr[kk * L::LDW + q * TN + 16 * c]);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[q][i][c] = fmaf(av[i], wv, acc[q][i][c]);
+          }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* cs) {
+    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) cs[(size_t)(tr * 8 + i) * L::LDC + q * TN + tc + 16 * c] = acc[q][i][c];
+  }
+};
+
+// The conv of one tile (times t0 + [0, TM) of recording b, output columns n0
+// + [0, TN) of each group) into cs, as conv3_kernel computes it: stage each
+// chunk's input window and weight rows in xs and ws, multiply. Ends with cs
+// written and synchronised.
+template <typename T, int NG, class Pro>
+__device__ __forceinline__ void conv3_tile(T* xs, T* ws, float* cs, const T* __restrict__ x, const T* __restrict__ w,
+                                           const Conv& g, const Pro& pro, int b, int t0, int n0, T* dump) {
+  using L = Layout<T, NG>;
+  Tile<T, NG> tile;
+  tile.zero();
+  for (int k0 = 0; k0 < g.Cin; k0 += L::KC) {
+    __syncthreads();  // everyone is done with the previous chunk
+    load_window<T, NG>(xs, x, g, pro, b, t0, k0, dump);
+    load_weights<T, NG>(ws, w, g, n0, k0);
+    __syncthreads();
+    tile.mma(xs, L::LDX, ws, g.d);
+  }
+  tile.store(cs);
+  __syncthreads();
 }
 
 // Grid (ceil(Cout / TN), ntile, B). Epi: operator()(b, t, c, value, gate,

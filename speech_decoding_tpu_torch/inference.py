@@ -14,9 +14,10 @@ The default encode on the card is the fused serving path: SubjectBlock
 (per-subject matmul kernel) -> five fused ConvBlock kernels -> two 1x1 GELU
 heads. ``use_fused_blocks=False`` runs the module forward instead (which
 takes the same per-subject kernel).
-The bank lives on the device. ``bank_from_audio``, ``from_checkpoint`` and
-a sharded bank wait for the wav2vec2, checkpoint and parallel parts of the
-port.
+The bank lives on the device. ``SpeechDecoder.from_checkpoint`` serves a
+checkpoint of the port's ``training.CheckpointManager`` (the latest, the
+best-model one or a given epoch). ``bank_from_audio`` and a sharded bank wait
+for the wav2vec2 and parallel parts of the port.
 """
 
 from __future__ import annotations
@@ -105,6 +106,24 @@ class SpeechDecoder:
         self._bank_scale: Optional[torch.Tensor] = None
         if bank is not None:
             self.set_bank(bank)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, encoder: BrainEncoder, bank: Optional[ArrayLike] = None,
+                        epoch: Optional[int] = None, best: bool = False,
+                        device: Optional[Union[str, torch.device]] = None) -> "SpeechDecoder":
+        """A decoder on ``encoder`` (built like the trained one) with the
+        parameters and BatchNorm statistics of a checkpoint written by
+        ``training.CheckpointManager`` in ``checkpoint_dir``: the latest, the
+        given ``epoch``, or with ``best=True`` the best-model checkpoint of
+        ``<checkpoint_dir>-best/``. The optimizer state is not read, so a
+        MultiSteps checkpoint serves as well as an Adam one."""
+        from speech_decoding_tpu_torch.training.checkpoint import CheckpointManager
+        from speech_decoding_tpu_torch.training.state import create_train_state
+
+        state = create_train_state(encoder, device=device)
+        mgr = CheckpointManager(checkpoint_dir, track_metric="testTop10acc" if best else None)
+        state, _ = mgr.restore_for_eval(state, epoch, best=best)
+        return cls(state.encoder, bank, device=device)
 
     # -- serving ops ----------------------------------------------------------
 

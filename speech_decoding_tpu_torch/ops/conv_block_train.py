@@ -23,7 +23,13 @@ computed in f32 and cast; F2 adds its skip in f32 before its one cast; B1
 and B2 take x̂ in dt, B2 and B3 recompute the x̂ of dy in f32; every dy is
 cast to dt before its dW; the variance is E[y²] − mean² in f32.
 
-Each stage function (``f1`` … ``b3``) launches its CUDA kernels
+K7, ``f31``, is F3 of block k merged with F1 of block k + 1 (the JAX
+package's ``tools/bench_cross_block_merge.py`` experiment): one kernel
+keeps a window of ``out`` in shared memory for the next conv; ``f31_plain``
+is ``f3_plain`` then ``f1_plain``. It runs in
+``tools/bench_cross_block_merge.py`` of the port, never in the train step.
+
+Each stage function (``f1`` … ``b3``, ``f31``) launches its CUDA kernels
 (``csrc/conv_block_train.cu``, built on the conv tile of ``csrc/tap3.cuh``)
 for CUDA tensors and runs its plain version (``f1_plain`` … ``b3_plain``) for
 CPU tensors; it never falls back on the card. B1, B2 and B3 take their dW
@@ -112,6 +118,25 @@ def f3_plain(y1, mi1, gb1, w2, b2):
     y2 = _conv3(h1, w2, 2) + b2
     C = y2.shape[-1] // 2
     return y2[..., :C].to(dt) * torch.sigmoid(y2[..., C:]).to(dt)
+
+
+def next_conv0_dilation(k_next: int) -> int:
+    """The dilation of block k_next's conv0, the conv K7 runs after block
+    k_next - 1's F3. k_next >= 1: block 0 has no block before it (and no skip
+    around its conv0), so there is no boundary to merge."""
+    if not 1 <= int(k_next) <= 4:
+        raise ValueError(f"K7 merges F3 of block k with F1 of block k+1: k_next must be in 1..4, got {k_next}")
+    return dilations(int(k_next))[0]
+
+
+def f31_plain(y1, mi1, gb1, w2, b2, w0n, b0n, k_next: int):
+    """K7: F3 of block k then F1 of block k_next = k + 1 (with its skip, as
+    ``_f31_kernel`` of tools/bench_cross_block_merge.py computes). Returns
+    (out, y0n, s0n)."""
+    next_conv0_dilation(k_next)
+    out = f3_plain(y1, mi1, gb1, w2, b2)
+    y0n, s0n = f1_plain(out, w0n, b0n, k_next)
+    return out, y0n, s0n
 
 
 def b1_plain(dout, y1, mi1, gb1, w2, b2, w2t):
@@ -216,6 +241,17 @@ def _f3_launch(y1, mi1, gb1, w2, b2):
     return out
 
 
+def _f31_launch(y1, mi1, gb1, w2, b2, w0n, b0n, k_next):
+    d0n = next_conv0_dilation(k_next)
+    B, T, C = y1.shape
+    dt, dev, f32 = y1.dtype, y1.device, torch.float32
+    _check("F31", dt, dev, [(y1, (B, T, C), dt), (mi1, (2, C), f32), (gb1, (2, C), f32), (w2, (3, C, 2 * C), dt),
+                            (b2, (2 * C,), f32), (w0n, (3, C, C), dt), (b0n, (C,), f32)])
+    out, y0n, s0n = _empty(dev, B, T, C, dtype=dt), _empty(dev, B, T, C, dtype=dt), _empty(dev, 2, C)
+    _run("f31", dt, [y1, mi1, gb1, w2, b2, w0n, b0n, out, y0n, _part(B, T, C, dev), s0n], [B, T, C, d0n], dev)
+    return out, y0n, s0n
+
+
 def _b1_launch(dout, y1, mi1, gb1, w2, b2, w2t):
     B, T, C = y1.shape
     dt, dev, f32 = y1.dtype, y1.device, torch.float32
@@ -253,7 +289,7 @@ def _b3_launch(du0, y0, mi0, g0c, x, w0t, k):
     return dx, tap_conv_dw(x, dy0, d0), db0
 
 
-def _stage(name: str, launch, plain):
+def _stage(name: str, launch, plain, kernel: str = "K6 stage"):
     """The stage wrapper: the kernels for CUDA tensors, the plain version for
     CPU tensors. Its ``launches`` counts calls that launched the kernels."""
 
@@ -267,7 +303,7 @@ def _stage(name: str, launch, plain):
         return plain(*args)
 
     stage.__name__ = stage.__qualname__ = name.lower()
-    stage.__doc__ = f"K6 stage {name}: arguments and results as ``{plain.__name__}``."
+    stage.__doc__ = f"{kernel} {name}: arguments and results as ``{plain.__name__}``."
     stage.launches = 0
     return stage
 
@@ -280,6 +316,7 @@ b2 = _stage("B2", _b2_launch, b2_plain)
 b3 = _stage("B3", _b3_launch, b3_plain)
 STAGES = {"F1": f1, "F2": f2, "F3": f3, "B1": b1, "B2": b2, "B3": b3}
 PLAIN = {"F1": f1_plain, "F2": f2_plain, "F3": f3_plain, "B1": b1_plain, "B2": b2_plain, "B3": b3_plain}
+f31 = _stage("F31", _f31_launch, f31_plain, kernel="K7")
 
 
 def stage_inputs(B: int, T: int, Cin: int, C: int, k: int, dtype, device, generator: torch.Generator):

@@ -1,6 +1,11 @@
 """Serve a trained decoder over HTTP on the GPU (micro-batching; see
 ``speech_decoding_tpu_torch/serving.py`` for the endpoints and batching).
 
+    # a checkpoint of the port's trainer (latest; eval.best=true for the
+    # best-model one, eval.epoch=N for a given epoch)
+    python -m speech_decoding_tpu_torch.serve outputs/<run>/config.yaml \
+        checkpoint.dir=outputs/<run>/checkpoints serve.bank=bank.npz
+
     # reference-trained torch checkpoint
     python -m speech_decoding_tpu_torch.serve dataset=Gwilliams2022 \
         torch_checkpoint=model_last.pt serve.bank=bank.npz serve.port=8989
@@ -10,9 +15,11 @@ an .npz holding ``bank`` (N, F, T), or a raw ``.npy``. Options: serve.host
 (127.0.0.1), serve.port (8989), serve.max_batch (64), serve.max_wait_ms
 (3.0), serve.bank_dtype ("float32" | "int8"), serve.segment_len (defaults to
 the bank's T), serve.warmup_k (10; 0 skips the warm-up decode before
-listening), serve.device ("cuda"; "cpu" only when asked). The model comes
-from ``torch_checkpoint=`` (a reference ``state_dict``); the orbax
-``checkpoint.dir`` restore waits for the port's checkpoint module.
+listening), serve.num_subjects (27, for ``checkpoint.dir``), serve.device
+("cuda"; "cpu" only when asked). The model comes from ``torch_checkpoint=``
+(a reference ``state_dict``) or from ``checkpoint.dir=`` (the port's
+``training.CheckpointManager``; the encoder is built from the config, as it
+was trained). Orbax directories of the JAX package are not read.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ import numpy as np
 
 def build_decoder(args, device=None):
     """A ``SpeechDecoder`` from a reference torch checkpoint
-    (``torch_checkpoint=``), computing in ``tpu.compute_dtype``."""
+    (``torch_checkpoint=``, computing in ``tpu.compute_dtype``) or from a
+    checkpoint of the port's trainer (``checkpoint.dir=``, with
+    ``eval.best`` and ``eval.epoch``; the encoder from the config)."""
     import torch
 
     from speech_decoding_tpu_torch.data.layout import ch_locations_2d
@@ -35,12 +44,17 @@ def build_decoder(args, device=None):
     from speech_decoding_tpu_torch.models.torch_port import brain_encoder_from_torch
 
     torch_ckpt = args.select("torch_checkpoint", None)
-    if not torch_ckpt:
-        raise ValueError(
-            "pass torch_checkpoint=<model_last.pt>: the port serves reference "
-            "torch checkpoints (orbax checkpoint.dir restore is not ported yet)"
-        )
+    ckpt_dir = args.select("checkpoint.dir", None)
+    if not (torch_ckpt or ckpt_dir):
+        raise ValueError("pass checkpoint.dir=<dir> or torch_checkpoint=<model_last.pt>")
     loc = ch_locations_2d(args.dataset, args.root_dir)
+    if not torch_ckpt:
+        if not os.path.isabs(ckpt_dir):
+            ckpt_dir = os.path.join(args.root_dir, ckpt_dir)
+        encoder = BrainEncoder.from_config(args, loc, int(args.select("serve.num_subjects", 27)))
+        epoch = args.select("eval.epoch", None)
+        return SpeechDecoder.from_checkpoint(ckpt_dir, encoder, epoch=None if epoch is None else int(epoch),
+                                             best=bool(args.select("eval.best", False)), device=device)
     sd = torch.load(torch_ckpt, map_location="cpu", weights_only=True)
     params, batch_stats, dims = brain_encoder_from_torch(sd)
     encoder = BrainEncoder(

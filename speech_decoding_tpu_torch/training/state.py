@@ -5,7 +5,8 @@ Port of ``speech_decoding_tpu/training/state.py``. The reference optimizes
 ``encoder.parameters() + loss.parameters()`` with one Adam
 [ref: train.py:161-163]. Gradient accumulation (Brennan steps once per
 epoch [ref: train.py:205-209]) behaves as optax.MultiSteps: the mean of k
-gradients, applied every k-th call.
+gradients, applied every k-th call; ``MultiSteps.state_dict()`` carries that
+cycle through a checkpoint.
 
 JAX donates its state to each step and gets a new one back; the port
 updates the modules and the optimizer in place, and a step returns the same
@@ -15,7 +16,7 @@ updates the modules and the optimizer in place, and a step returns the same
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
@@ -40,6 +41,23 @@ class MultiSteps:
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self) -> Dict:
+        """The inner optimizer's state, the running mean of the gradients
+        and the position in the k-step cycle: a run resumed from it steps as
+        an uninterrupted one."""
+        return {"optimizer": self.optimizer.state_dict(), "acc": [a.clone() for a in self._acc],
+                "mini_step": self.mini_step, "every_k": self.every_k}
+
+    def load_state_dict(self, state: Dict) -> None:
+        if int(state["every_k"]) != self.every_k or len(state["acc"]) != len(self._acc):
+            raise ValueError(f"MultiSteps state for every_k={state['every_k']} over {len(state['acc'])} tensors "
+                             f"does not fit every_k={self.every_k} over {len(self._acc)}")
+        self.optimizer.load_state_dict(state["optimizer"])
+        with torch.no_grad():
+            for acc, saved in zip(self._acc, state["acc"]):
+                acc.copy_(saved)
+        self.mini_step = int(state["mini_step"])
 
     @torch.no_grad()
     def step(self) -> None:

@@ -28,9 +28,11 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     for m in ("ops.conv_block", "ops.scaling", "ops.tap_conv", "ops.retrieval", "models.loss",
-              "models.classifier", "training", "training.state", "training.steps"):
+              "models.classifier", "training", "training.state", "training.steps", "training.trainer",
+              "training.checkpoint", "training.preemption", "data.sampling", "data.native_loader",
+              "utils.reproducibility", "tools", "tools.bench_cross_block_merge", "tools.scale_run"):
         assert f"speech_decoding_tpu_torch.{m}" in mods, m
-    assert len(mods) >= 24
+    assert len(mods) >= 33
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
@@ -51,11 +53,19 @@ def test_kernel_sources_and_config_ship_with_the_package():
     from speech_decoding_tpu_torch.config import load_config
     from speech_decoding_tpu_torch.ops import _build
 
-    for name in ("subject_matmul", "conv_block", "tap_conv_dw", "retrieval_ranks"):
-        src = os.path.join(_build.SRC_DIR, f"{name}.cu")
-        with open(src) as f:
+    # every kernel source names the JAX file of the Pallas kernel it replaces
+    replaces = {"subject_matmul.cu": ["ops/pallas/"], "conv_block.cu": ["ops/pallas/"],
+                "tap_conv_dw.cu": ["ops/pallas/"], "retrieval_ranks.cu": ["ops/pallas/"],
+                "tap_conv.cu": ["ops/pallas/tap_conv.py"],
+                "conv_block_train.cu": ["ops/pallas/", "conv_block_train.py", "tools/bench_cross_block_merge.py"],
+                "tap3.cuh": ["ops/pallas/", "conv_block.py:50", "ops/pallas/tap_conv.py"]}
+    assert sorted(replaces) == sorted(os.listdir(_build.SRC_DIR))
+    for name, files in replaces.items():
+        with open(os.path.join(_build.SRC_DIR, name)) as f:
             text = f.read()
-        assert 'extern "C"' in text and "speech_decoding_tpu/ops/pallas/" in text
+        assert name.endswith(".cuh") or 'extern "C"' in text, name
+        for jax_file in files:
+            assert jax_file in text, (name, jax_file)
     cfg = load_config()
     assert cfg.D1 == 270 and cfg.D2 == 320 and cfg.K == 32
 

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (K1 forward and backward, K2, K3, K4, K5
-and the six stages of K6) against their plain PyTorch versions, on the card. Marked ``cuda``; each test skips when no CUDA device is present (the
+"""The hand-written CUDA kernels (K1 forward and backward, K2, K3, K4, K5,
+the six stages of K6 and K7) against their plain PyTorch versions, on the card. Marked ``cuda``; each test skips when no CUDA device is present (the
 CPU tier holds the plain versions against JAX instead). Run on a GPU with
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
@@ -409,3 +409,40 @@ def test_conv_block_train_matches_module_block(dev, k):
     gmax = max(float(b.abs().max()) for b in want)
     for a, b in zip([x2.grad] + [p.grad for p in params], want):
         assert bool(((a - b).abs() <= 1e-4 * float(b.abs().max()) + 1e-5 * gmax).all())
+
+
+def _f31_inputs(B, T, k_next, dtype, dev, seed):
+    """F3's arguments of block k_next - 1 and F1's weights of block k_next."""
+    ins = cbt.stage_inputs(B, T, 320, 320, k_next, dtype, dev, torch.Generator(device=dev).manual_seed(seed))
+    return (*ins["F3"], *ins["F1"][1:3], k_next)
+
+
+@pytest.mark.parametrize("k_next", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype,B,T", [(torch.bfloat16, 8, 360), (torch.float32, 2, 360), (torch.float32, 3, 37),
+                                       (torch.bfloat16, 3, 37)])
+def test_f31_kernel(dev, k_next, dtype, B, T):
+    """K7 against its plain version (out and y0n as activations, s0n at 1e-4
+    (f32) or 1e-3 (bf16) of its largest entry) and against the split K6
+    kernels F3 then F1: out and y0n bitwise, s0n within rtol 1e-6. T=37 with
+    d0n=16 (k_next=2) puts the window past both edges of the recording."""
+    args = _f31_inputs(B, T, k_next, dtype, dev, 7 * k_next + B)
+    before = cbt.f31.launches
+    out, y0n, s0n = cbt.f31(*args)
+    assert cbt.f31.launches == before + 1
+    _k6_close((out, y0n, s0n), cbt.f31_plain(*args), 1e-4 if dtype == torch.float32 else 1e-3)
+    o_split = cbt.f3(*args[:5])
+    y_split, s_split = cbt.f1(o_split, args[5], args[6], k_next)
+    torch.cuda.synchronize()
+    assert torch.equal(out, o_split) and torch.equal(y0n, y_split)
+    torch.testing.assert_close(s0n, s_split, rtol=1e-6, atol=0.0)
+
+
+def test_f31_is_deterministic_and_rejects(dev):
+    args = _f31_inputs(8, 360, 2, torch.bfloat16, dev, 1)
+    a, b = cbt.f31(*args), cbt.f31(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError, match="k_next"):
+        cbt.f31(*args[:-1], 0)
+    with pytest.raises(ValueError, match="argument 6"):
+        cbt.f31(*args[:5], args[5][:, :8].contiguous(), args[6], 2)
