@@ -17,12 +17,18 @@ What it does, in order (one JSON object per line on stdout):
      against the plain version's, f32 and bf16, at both shapes;
   3b. K2 ``tap_conv_dw`` against ``tap_conv_dw_plain``: bf16 at B=64, T=360
      for every (Cin, Cout, dilation) of the flagship's 15 k=3 convs, f32 at
-     B=4, ragged shapes (Cin=270, T=13 with d=16 >= T, B=3); two runs on the
-     same inputs must give the same bits;
+     B=4, ragged shapes (Cin=270, T=13 with d=16 >= T, T=37, B=3), and for
+     the bf16 body's TMA operands 270- and 272-channel x and g, T under one
+     64-row chunk, B=1, (1, 1, 1, 1, 1), and a base that is not 16-byte
+     aligned (it is copied and must match); two runs on the same inputs must
+     give the same bits;
   3c. K5 ``tap_conv`` against ``tap_conv_plain``: bf16 at B=64, T=360 for
      every (Cin, Cout, dilation) of the flagship's 15 k=3 convs and their dx
-     forms (Cin and Cout swapped), f32 at B=4, a ragged B=3, T=37, Cin=270,
-     d=16; two runs must give the same bits;
+     forms (``tap_conv_transposed``, the backward's call: the conv with
+     ``flip_taps(w)``), f32 at B=4, a ragged B=3, T=37, Cin=270, d=16, 270-
+     and 272-channel inputs and outputs (forward and dx), T under one
+     128-row tile, B=1, (1, 2, 1, 1, 1), misaligned x and w (copied; they
+     must match); two runs must give the same bits;
   3d. K3 ``retrieval_ranks`` against ``retrieval_ranks_plain`` at B=2048,
      D=F·T=368,640 and at a ragged B=333 with D off the tile; ranks must be
      equal except on rows whose plain similarity has an entry within 1e-6 of
@@ -77,7 +83,9 @@ What it does, in order (one JSON object per line on stdout):
      ``pallas_taps`` encoder: K5 15 per chunk, K1 one per chunk, K3 one;
   11. timings of K1's backward dX, K2 (each of the 15 launches of a step and
      their sum), K5 (the 30 launches of a ``pallas_taps`` step, against
-     ``F.conv1d``), K6 per block (F1+F2+F3 and B1+B2+B3 beside the module
+     ``F.conv1d``), K2 and K5 each by CUDA events and on the device alone
+     (kernel durations summed from ``torch.profiler``) with the share of the
+     bound, K6 per block (F1+F2+F3 and B1+B2+B3 beside the module
      ``ConvBlock`` forward and backward) and K3 at B=2048: kernel, plain,
      library yardstick, bound; K3 and its yardstick with and without the
      preparation (cast, norms, diagonal);
@@ -192,6 +200,39 @@ def compare(name: str, got, want, atol: float, rtol: float, show: bool = True) -
     return max_abs
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` whose base lies one element past an
+    allocation's start, so not 16-byte aligned."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return flat[1:].view(t.shape).copy_(t)
+
+
+def device_ms(fn, reps: int = 10, attempts: int = 3):
+    """Device ms per call: the durations of every kernel ``reps`` calls
+    launch (the wrapper's operand copies included, the host's time between
+    launches not), summed from a ``torch.profiler`` trace; None if the
+    profiler saw no device activity in ``attempts`` traces (a trace now and
+    then comes back without its device events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        if us:
+            return us / reps / 1e3
+    return None
+
+
 def flagship_convs(D1: int, D2: int, dilations):
     """(Cin, Cout, dilation) of the encoder's 15 k=3 convs, in step order."""
     convs = []
@@ -248,7 +289,9 @@ def main() -> int:
         )
         from speech_decoding_tpu_torch.ops.scaling import window_scale_stats
         from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain
-        from speech_decoding_tpu_torch.ops.tap_conv import tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain
+        from speech_decoding_tpu_torch.ops.tap_conv import (
+            flip_taps, tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain, tap_conv_transposed,
+        )
         from speech_decoding_tpu_torch.serving import DecoderServer, decode_request
         from speech_decoding_tpu_torch.tools import bench_cross_block_merge as merge_tool
         from speech_decoding_tpu_torch.tools import scale_run
@@ -346,13 +389,22 @@ def main() -> int:
         k2_err[name] = compare(name, tap_conv_dw(xs[cin], gs[cout], d), want, 1e-4 * float(want.abs().max()), 1e-4)
     for dtype, rel, shapes in ((f32, 1e-5, [(4, T, D1, D2, 1), (4, T, D2, D2, 16), (4, T, D2, 2 * D2, 2)]),
                                (f32, 1e-5, [(3, 13, 270, 40, 16), (3, 13, 270, 40, 4), (3, 37, 270, 72, 8)]),
-                               (bf16, 1e-4, [(3, 13, 270, 40, 16), (3, 37, 270, 72, 8)])):
+                               (bf16, 1e-4, [(3, 13, 270, 40, 16), (3, 37, 270, 72, 8), (1, 1, 1, 1, 1),
+                                             (1, T, 272, 270, 2), (2, 40, 270, 272, 4), (3, 13, 272, 272, 16)])):
         for b_, t_, cin, cout, d in shapes:
             x = torch.randn(b_, t_, cin, generator=gen).to(dev, dtype)
             gy = torch.randn(b_, t_, cout, generator=gen).to(dev, dtype)
             want = tap_conv_dw_plain(x, gy, d)
             name = f"K2 {str(dtype)[6:]} {(b_, t_, cin, cout)} d={d}"
             k2_err[name] = compare(name, tap_conv_dw(x, gy, d), want, rel * float(want.abs().max()), rel)
+    # a base that is not 16-byte aligned (TMA needs one; the wrapper copies
+    # it): x, then g
+    x = torch.randn(4, 90, D2, generator=gen).to(dev, bf16)
+    gy = torch.randn(4, 90, D2, generator=gen).to(dev, bf16)
+    want = tap_conv_dw_plain(x, gy, 4)
+    for label, args_ in (("x", (misaligned(x), gy)), ("g", (x, misaligned(gy)))):
+        name = f"K2 bf16 (4, 90, {D2}, {D2}) d=4, misaligned {label}"
+        k2_err[name] = compare(name, tap_conv_dw(*args_, 4), want, 1e-4 * float(want.abs().max()), 1e-4)
     for dtype in (bf16, f32):
         x, gy = xs[D2].to(dtype), gs[2 * D2].to(dtype)
         first, second = tap_conv_dw(x, gy, 2), tap_conv_dw(x, gy, 2)
@@ -366,22 +418,40 @@ def main() -> int:
     # both sides sum the three taps in f32 and cast once: they differ by a
     # flipped bf16 rounding (1e-2 of the largest entry + 1e-2 relative) at
     # most; f32 by the order of the sums (1e-5)
+    # dx: tap_conv_transposed(g, w) against the plain conv with flip_taps(w)
     k5_err = {}
-    for cin, cout, d in sorted(set(convs) | {(cout, cin, d) for cin, cout, d in convs}):  # forward and dx
+    for cin, cout, d in sorted(set(convs)):
         x = torch.randn(B, T, cin, generator=gen).to(dev, bf16)
         w = torch.randn(3, cin, cout, generator=gen).div((3 * cin) ** 0.5).to(dev, bf16)
-        want = tap_conv_plain(x, w, d)
-        name = f"K5 bf16 {(B, T, cin, cout)} d={d}"
-        k5_err[name] = compare(name, tap_conv(x, w, d), want, 1e-2 * float(want.abs().max()), 1e-2)
+        gy = torch.randn(B, T, cout, generator=gen).to(dev, bf16)
+        for form, got, want in (("", lambda: tap_conv(x, w, d), tap_conv_plain(x, w, d)),
+                                (" dx", lambda: tap_conv_transposed(gy, w, d), tap_conv_plain(gy, flip_taps(w), d))):
+            name = f"K5 bf16{form} {(B, T, cin, cout)} d={d}"
+            k5_err[name] = compare(name, got(), want, 1e-2 * float(want.abs().max()), 1e-2)
     for dtype, rel, shapes in ((f32, 1e-5, [(4, T, D1, D2, 1), (4, T, D2, D2, 16), (4, T, D2, 2 * D2, 2),
                                             (4, T, 2 * D2, D2, 2), (3, 37, 270, 40, 16)]),
-                               (bf16, 1e-2, [(3, 37, 270, 40, 16)])):
+                               (bf16, 1e-2, [(3, 37, 270, 40, 16), (1, 2, 1, 1, 1), (1, T, 272, 270, 2),
+                                             (2, 40, 270, 272, 4), (1, 17, 272, 272, 16)])):
         for b_, t_, cin, cout, d in shapes:
             x = torch.randn(b_, t_, cin, generator=gen).to(dev, dtype)
             w = torch.randn(3, cin, cout, generator=gen).div((3 * cin) ** 0.5).to(dev, dtype)
             want = tap_conv_plain(x, w, d)
             name = f"K5 {str(dtype)[6:]} {(b_, t_, cin, cout)} d={d}"
             k5_err[name] = compare(name, tap_conv(x, w, d), want, rel * float(want.abs().max()), rel)
+            gy = torch.randn(b_, t_, cout, generator=gen).to(dev, dtype)
+            want = tap_conv_plain(gy, flip_taps(w), d)
+            name = f"K5 {str(dtype)[6:]} dx {(b_, t_, cin, cout)} d={d}"
+            k5_err[name] = compare(name, tap_conv_transposed(gy, w, d), want, rel * float(want.abs().max()), rel)
+    # misaligned bases (copied by the wrapper): x, then w, then the dx's w
+    x = torch.randn(3, 70, D2, generator=gen).to(dev, bf16)
+    w = torch.randn(3, D2, D2 // 2, generator=gen).div((3 * D2) ** 0.5).to(dev, bf16)
+    gy = torch.randn(3, 70, D2 // 2, generator=gen).to(dev, bf16)
+    want, want_dx = tap_conv_plain(x, w, 2), tap_conv_plain(gy, flip_taps(w), 2)
+    for label, got, ref in (("x", lambda: tap_conv(misaligned(x), w, 2), want),
+                            ("w", lambda: tap_conv(x, misaligned(w), 2), want),
+                            ("w, dx", lambda: tap_conv_transposed(gy, misaligned(w), 2), want_dx)):
+        name = f"K5 bf16 (3, 70, {D2}, {D2 // 2}) d=2, misaligned {label}"
+        k5_err[name] = compare(name, got(), ref, 1e-2 * float(ref.abs().max()), 1e-2)
     for dtype in (bf16, f32):
         x = torch.randn(B, T, D2, generator=gen).to(dev, dtype)
         w = torch.randn(3, D2, D2, generator=gen).div((3 * D2) ** 0.5).to(dev, dtype)
@@ -889,13 +959,19 @@ def main() -> int:
          kernel_ms=k1b_ms, plain_ms=k1b_plain, library_ms=k1b_lib, library="torch.bmm over Wᵀ[sidx]",
          bound_ms=k1_bound, bound_by=k1_by, launches_per_train_step=per_step["subject_matmul"])
 
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    # kernel_ms by CUDA events around back-to-back wrapper calls; device_ms the
+    # same calls' kernels alone (torch.profiler durations, the wrapper's
+    # operand copies included); pct_of_bound = bound / time
+    traced = True
+    k2 = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0.0,
+          "bytes": 0.0}
     per_conv = []
     xs = {c: torch.randn(B, T, c, generator=gen).to(dev, bf16) for c in (D1, D2)}
     gs = {c: torch.randn(B, T, c, generator=gen).to(dev, bf16) for c in (D2, 2 * D2)}
     for cin, cout, d in convs:
         x, gy = xs[cin], gs[cout]
         ms = time_ms(lambda: tap_conv_dw(x, gy, d), reps=10)
+        dms = device_ms(lambda: tap_conv_dw(x, gy, d))
         plain = time_ms(lambda: tap_conv_dw_plain(x, gy, d), reps=5)
         xp = torch.nn.functional.pad(x, (0, 0, d, d))
         taps = [xp[:, j * d : j * d + T].reshape(B * T, cin) for j in range(3)]
@@ -904,14 +980,19 @@ def main() -> int:
         flops = 2 * cin * cout * B * (T + 2 * max(T - d, 0))  # the shifted taps see T-d valid rows
         moved = nbytes(x, gy) + 3 * cin * cout * 4
         bnd, by = bound_ms(flops, moved, peaks, "bf16")
-        per_conv.append({"cin": cin, "cout": cout, "d": d, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                         "bound_ms": bnd, "bound_by": by})
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bnd),
-                       ("flops", flops), ("bytes", moved)):
+        per_conv.append({"cin": cin, "cout": cout, "d": d, "ms": ms, "device_ms": dms, "plain_ms": plain,
+                         "library_ms": lib, "bound_ms": bnd, "bound_by": by, "pct_of_bound": 100 * bnd / ms})
+        for key, v in (("ms", ms), ("device_ms", dms or 0.0), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bnd), ("flops", flops), ("bytes", moved)):
             k2[key] += v
+        traced = traced and dms is not None
     k2_by = bound_ms(k2["flops"], k2["bytes"], peaks, "bf16")[1]
+    if not traced:
+        k2["device_ms"] = "not measured"
     emit(timing="K2 tap_conv_dw, the 15 launches of one flagship step", dtype="bf16", B=B, T=T,
-         kernel_ms=k2["ms"], plain_ms=k2["plain_ms"], library_ms=k2["library_ms"],
+         kernel_ms=k2["ms"], device_ms=k2["device_ms"], pct_of_bound=100 * k2["bound_ms"] / k2["ms"],
+         device_pct_of_bound=100 * k2["bound_ms"] / k2["device_ms"] if traced else "not measured",
+         plain_ms=k2["plain_ms"], library_ms=k2["library_ms"],
          library="three torch.matmul(x_jᵀ, g) per conv (bf16 out; shifted copies made outside the timing)",
          bound_ms=k2["bound_ms"], bound_by=k2_by, tflop=k2["flops"] / 1e12, per_conv=per_conv,
          launches_per_train_step=per_step["tap_conv_dw"])
@@ -920,35 +1001,49 @@ def main() -> int:
     # K5: the 30 launches of a pallas_taps step (each conv forward and its
     # dx), against F.conv1d on the (B, C, T) layout (transposes made outside
     # the timing; cuDNN without TF32), which must compute the same function
-    k5 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    k5 = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0.0,
+          "bytes": 0.0}
+    traced = True
     k5_per_conv, k5_lib_err = [], 0.0
     for cin, cout, d in convs:
         for form, ci, co in (("forward", cin, cout), ("dx", cout, cin)):
+            # dx as the backward runs it: tap_conv_transposed(g, w) with w
+            # (3, Cin, Cout) of the forward conv; wf the weights it applies
             x = torch.randn(B, T, ci, generator=gdev, device=dev).to(bf16)
-            w = torch.randn(3, ci, co, generator=gdev, device=dev).div((3 * ci) ** 0.5).to(bf16)
-            xc, wc = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()  # (B, Cin, T), (Cout, Cin, 3)
-            want = tap_conv_plain(x, w, d)
+            w = torch.randn(3, *((ci, co) if form == "forward" else (co, ci)), generator=gdev,
+                            device=dev).div((3 * ci) ** 0.5).to(bf16)
+            k5_fn = tap_conv if form == "forward" else tap_conv_transposed
+            wf = w if form == "forward" else flip_taps(w)
+            xc, wc = x.transpose(1, 2).contiguous(), wf.permute(2, 1, 0).contiguous()  # (B, Cin, T), (Cout, Cin, 3)
+            want = tap_conv_plain(x, wf, d)
             lib_y = Fn.conv1d(xc, wc, dilation=d, padding=d).transpose(1, 2)
             k5_lib_err = max(k5_lib_err, compare(f"F.conv1d d={d}", lib_y, want, 1e-2 * float(want.abs().max()),
                                                  1e-2, show=False))
-            ms = time_ms(lambda: tap_conv(x, w, d), reps=10)
-            plain = time_ms(lambda: tap_conv_plain(x, w, d), reps=5)
+            ms = time_ms(lambda: k5_fn(x, w, d), reps=10)
+            dms = device_ms(lambda: k5_fn(x, w, d))
+            plain = time_ms(lambda: tap_conv_plain(x, wf, d), reps=5)
             lib = time_ms(lambda: Fn.conv1d(xc, wc, dilation=d, padding=d), reps=10)
             flops = 2 * ci * co * B * (T + 2 * max(T - d, 0))  # the shifted taps see T-d valid rows
             moved = nbytes(x, w) + B * T * co * 2
             bnd, by = bound_ms(flops, moved, peaks, "bf16")
-            k5_per_conv.append({"form": form, "cin": ci, "cout": co, "d": d, "ms": ms, "plain_ms": plain,
-                                "library_ms": lib, "bound_ms": bnd, "bound_by": by})
-            for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bnd),
-                           ("flops", flops), ("bytes", moved)):
+            k5_per_conv.append({"form": form, "cin": ci, "cout": co, "d": d, "ms": ms, "device_ms": dms,
+                                "plain_ms": plain, "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                                "pct_of_bound": 100 * bnd / ms})
+            for key, v in (("ms", ms), ("device_ms", dms or 0.0), ("plain_ms", plain), ("library_ms", lib),
+                           ("bound_ms", bnd), ("flops", flops), ("bytes", moved)):
                 k5[key] += v
+            traced = traced and dms is not None
     k5_by = bound_ms(k5["flops"], k5["bytes"], peaks, "bf16")[1]
+    if not traced:
+        k5["device_ms"] = "not measured"
     emit(timing="K5 tap_conv, the 30 launches of one pallas_taps step (15 forward, 15 dx)", dtype="bf16", B=B, T=T,
-         kernel_ms=k5["ms"], plain_ms=k5["plain_ms"], library_ms=k5["library_ms"],
+         kernel_ms=k5["ms"], device_ms=k5["device_ms"], pct_of_bound=100 * k5["bound_ms"] / k5["ms"],
+         device_pct_of_bound=100 * k5["bound_ms"] / k5["device_ms"] if traced else "not measured",
+         plain_ms=k5["plain_ms"], library_ms=k5["library_ms"],
          library="F.conv1d(x (B, C, T), w (Cout, Cin, 3), dilation=d, padding=d), cuDNN, no TF32",
          library_vs_plain_max_abs_err=k5_lib_err, bound_ms=k5["bound_ms"], bound_by=k5_by,
          tflop=k5["flops"] / 1e12, per_conv=k5_per_conv, launches_per_train_step=taps_per_step["tap_conv"])
-    del x, w, xc, wc, want, lib_y
+    del x, w, wf, xc, wc, want, lib_y
 
     # K6 per block: F1+F2+F3 and B1+B2+B3 (each stage with its reductions,
     # the backward stages with their K2 launch), the plain stages, and the
@@ -1224,7 +1319,8 @@ def main() -> int:
          "launches_by_path": {k: p["tap_conv_dw"] for k, p in paths.items()},
          "max_abs_err": max(k2_err.values()),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2_by,
-         "library_ms": k2["library_ms"]},
+         "library_ms": k2["library_ms"], "device_ms": k2["device_ms"], "header": "speech_decoding_tpu_torch/csrc/hopper.cuh",
+         "timed": "the 15 launches of one flagship train step"},
         {"name": "retrieval_ranks", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/retrieval_ranks.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/retrieval.py:90",
@@ -1235,13 +1331,13 @@ def main() -> int:
          "library_ms": k3_lib},
         {"name": "tap_conv", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/tap_conv.cu",
-         "header": "speech_decoding_tpu_torch/csrc/tap3.cuh",
+         "header": "speech_decoding_tpu_torch/csrc/hopper.cuh (bf16), speech_decoding_tpu_torch/csrc/tap3.cuh (f32)",
          "replaces": "speech_decoding_tpu/ops/pallas/tap_conv.py:69",
          "launches": launches_of("tap_conv"),
          "launches_by_path": {k: p["tap_conv"] for k, p in paths.items()},
          "max_abs_err": max(k5_err.values()),
          "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5_by,
-         "library_ms": k5["library_ms"], "timed": "the 30 launches of one pallas_taps step"},
+         "library_ms": k5["library_ms"], "device_ms": k5["device_ms"], "timed": "the 30 launches of one pallas_taps step"},
         {"name": "conv_block_train", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/conv_block_train.cu",
          "header": "speech_decoding_tpu_torch/csrc/tap3.cuh",

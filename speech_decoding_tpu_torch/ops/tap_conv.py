@@ -8,11 +8,10 @@ the encoder's opt-in ``conv_impl="pallas_taps"``):
 
 zero padding at each recording's edges, f32 accumulation of all three taps
 and one cast to x's dtype (the ``gemm`` path's ``TapConv`` rounds each tap's
-product to x's dtype instead, so the two differ at bf16 rounding). The CUDA
-kernel (``csrc/tap_conv.cu``) is the conv tile of ``csrc/tap3.cuh``, shared
-with K6. ``PallasTapConv`` is the JAX ``pallas_tap_conv`` custom VJP: dx is
-K5 on the tap-reversed, transposed weights, dW is K2. Like the JAX kernel,
-K5 takes 0 < d < T only.
+product to x's dtype instead, so the two differ at bf16 rounding).
+``PallasTapConv`` is the JAX ``pallas_tap_conv`` custom VJP: dx is K5 on the
+tap-reversed, transposed weights (``tap_conv_transposed``), dW is K2. Like the JAX kernel, K5 takes
+0 < d < T only.
 
 K2 (``tap_conv_dw``):
 
@@ -20,11 +19,21 @@ K2 (``tap_conv_dw``):
 
 with rows of x outside [0, T) read as zero. The backward of every k=3 conv
 of the encoder (``models.brain_encoder.TapConv``, ``PallasTapConv``, and the
-B1, B2 and B3 stages of K6) computes its dW here. The
-CUDA kernel (``csrc/tap_conv_dw.cu``) reads x and g once per block, splits
-the batch rows across blocks and adds the per-split f32 partials in a fixed
-order, so two runs on the same inputs give the same bits. bf16 runs on the
-tensor cores, f32 on the CUDA cores.
+B1, B2 and B3 stages of K6) computes its dW here.
+
+Both are bound by operations on the card. In bf16 each runs ``wgmma`` on
+tiles that TMA brings in from 3-D (C, T, B) tensor maps (``csrc/hopper.cuh``),
+whose out-of-range rows read as zero: the 'SAME' padding comes from the map.
+K5 (``csrc/tap_conv.cu``) is an implicit GEMM over (tap, 64-channel chunk)
+with K-major weights; K2 (``csrc/tap_conv_dw.cu``) gives each tap its own
+warpgroup and accumulator over one staged g tile, splits the recordings
+across blocks and adds the per-split f32 partials in a fixed order, so two
+runs on the same inputs give the same bits. TMA needs 16-byte row strides
+and bases, so the wrappers hand the kernels ``pad_channels`` copies (channels
+zero-padded to a multiple of 8, e.g. 270 → 272, or a misaligned base copied)
+and K5 its weights through ``pack_weights`` (for dx straight from
+``w.flip(0)``, one copy); both are plain PyTorch and the CPU tests hold them. f32 runs on the CUDA cores (K5 on the tile of
+``csrc/tap3.cuh``, shared with K6).
 
 ``tap_conv`` and ``tap_conv_dw`` launch their kernels for CUDA tensors and
 use ``tap_conv_plain`` / ``tap_conv_dw_plain`` for CPU tensors; they never
@@ -34,6 +43,7 @@ fall back on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -43,7 +53,47 @@ from speech_decoding_tpu_torch.ops import _build
 from speech_decoding_tpu_torch.ops.conv_block import _conv3
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_TILE = 64  # channels per block on each side (csrc/tap_conv_dw.cu TI, TO)
+# K2's tile (ci, co) per block: csrc/tap_conv_dw.cu TI, TO (f32) and dwb::TM, dwb::TN (bf16)
+_DW_TILE = {torch.float32: (64, 64), torch.bfloat16: (64, 128)}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of each C entry, set once when its library loads
+_SIGNATURES = {
+    ("tap_conv_dw", "tap_conv_dw_f32"): [_P] * 4 + [_I] * 6 + [_P],
+    ("tap_conv_dw", "tap_conv_dw_bf16"): [_P] * 4 + [_I] * 8 + [_P],
+    ("tap_conv", "tap_conv_f32"): [_P] * 3 + [_I] * 5 + [_P],
+    ("tap_conv", "tap_conv_bf16"): [_P] * 3 + [_I] * 6 + [_P],
+}
+_entries = {}
+
+
+def _entry(lib: str, name: str):
+    fn = _entries.get((lib, name))
+    if fn is None:
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = _SIGNATURES[lib, name]
+        fn.restype = ctypes.c_int
+        _entries[lib, name] = fn
+    return fn
+
+
+def pad_channels(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., C) as TMA reads it: contiguous, the last dim zero-padded to
+    a multiple of 8 (16-byte bf16 rows), the base 16-byte aligned. ``t``
+    itself when it already is; otherwise a fresh copy (270 channels → 272)."""
+    pad = -t.shape[-1] % 8
+    if pad:
+        return Fn.pad(t, (0, pad)).contiguous()
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def pack_weights(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+    """K5's weights (3, Cin, Cout) in the K-major form its kernel reads, the
+    conv's input channels zero-padded to a multiple of 8 in the same copy:
+    (3, Cout, Cin8) with ``[j, co, ci] = w[j, ci, co]``; with ``transposed``,
+    those of the conv with ``flip_taps(w)`` (the dx conv), which are
+    ``w.flip(0)``: (3, Cin, Cout8), one copy."""
+    return pad_channels(w.flip(0) if transposed else w.transpose(1, 2))
 
 
 def tap_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, dilation: int) -> torch.Tensor:
@@ -57,11 +107,23 @@ def tap_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, dilation: int) -> torch.
     return torch.stack(taps)
 
 
-def _splits(B: int, Cin: int, Cout: int, device: torch.device) -> int:
-    """Batch-row splits: about three blocks per SM over the whole grid."""
-    tiles = math.ceil(Cin / _TILE) * math.ceil(Cout / _TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(B, math.ceil(3 * sms / tiles)))
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device: torch.device) -> int:
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def _splits(B: int, Cin: int, Cout: int, device: torch.device, dtype: torch.dtype) -> int:
+    """Batch-row splits. f32: about three blocks per SM over the whole grid;
+    bf16 (one block per SM): as many as one wave holds."""
+    ti, to = _DW_TILE[dtype]
+    tiles = math.ceil(Cin / ti) * math.ceil(Cout / to)
+    sms = _sms(device)
+    n = math.ceil(3 * sms / tiles) if dtype == torch.float32 else sms // tiles
+    return max(1, min(B, n))
 
 
 def _launch(x: torch.Tensor, g: torch.Tensor, d: int) -> torch.Tensor:
@@ -76,15 +138,20 @@ def _launch(x: torch.Tensor, g: torch.Tensor, d: int) -> torch.Tensor:
     out = torch.empty((3, Cin, Cout), dtype=torch.float32, device=x.device)
     if B * T == 0:
         return out.zero_()
-    nsplit = _splits(B, Cin, Cout, x.device)
-    part = torch.empty((nsplit, 3, math.ceil(Cin / _TILE) * _TILE, math.ceil(Cout / _TILE) * _TILE),
+    nsplit = _splits(B, Cin, Cout, x.device, x.dtype)
+    ti, to = _DW_TILE[x.dtype]
+    part = torch.empty((nsplit, 3, math.ceil(Cin / ti) * ti, math.ceil(Cout / to) * to),
                        dtype=torch.float32, device=x.device)
-    fn = getattr(_build.load("tap_conv_dw"), f"tap_conv_dw_{_DTYPES[x.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, Cin, Cout, d, nsplit, stream)
+        if x.dtype == torch.float32:
+            err = _entry("tap_conv_dw", "tap_conv_dw_f32")(
+                x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, Cin, Cout, d, nsplit, stream)
+        else:
+            xp, gp = pad_channels(x), pad_channels(g)
+            err = _entry("tap_conv_dw", "tap_conv_dw_bf16")(
+                xp.data_ptr(), gp.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, Cin, Cout, xp.shape[2],
+                gp.shape[2], d, nsplit, stream)
     _build.check(err, f"tap_conv_dw d={d}")
     tap_conv_dw.launches += 1
     return out
@@ -113,7 +180,7 @@ def tap_conv_plain(x: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Ten
     return _conv3(x, w, dilation).to(x.dtype)
 
 
-def _launch_conv(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+def _launch_conv(x: torch.Tensor, w: torch.Tensor, d: int, transposed: bool) -> torch.Tensor:
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"tap_conv takes float32 or bfloat16 x and w of one dtype, got {x.dtype}, {w.dtype}")
     if not (w.is_cuda and w.device == x.device):
@@ -121,32 +188,49 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("tap_conv takes contiguous tensors")
     B, T, Cin = x.shape
-    Cout = w.shape[2]
+    Cout = w.shape[1] if transposed else w.shape[2]
     y = torch.empty((B, T, Cout), dtype=x.dtype, device=x.device)
-    fn = getattr(_build.load("tap_conv"), f"tap_conv_{_DTYPES[x.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, T, Cin, Cout, d, stream)
+        if x.dtype == torch.float32:
+            wf = flip_taps(w) if transposed else w
+            err = _entry("tap_conv", "tap_conv_f32")(x.data_ptr(), wf.data_ptr(), y.data_ptr(), B, T, Cin, Cout, d,
+                                                     stream)
+        else:
+            xp, wk = pad_channels(x), pack_weights(w, transposed)
+            err = _entry("tap_conv", "tap_conv_bf16")(xp.data_ptr(), wk.data_ptr(), y.data_ptr(), B, T,
+                                                      xp.shape[2], Cout, d, _sms(x.device), stream)
     _build.check(err, f"tap_conv d={d}")
     tap_conv.launches += 1
     return y
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, dilation: int, transposed: bool) -> torch.Tensor:
+    cin = w.shape[2] if transposed else w.shape[1]
+    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != 3 or cin != x.shape[2]:
+        want = "(3, Cout, Cin)" if transposed else "(3, Cin, Cout)"
+        raise ValueError(f"tap_conv shapes: x (B, T, Cin), w {want}; got {tuple(x.shape)}, {tuple(w.shape)}")
+    if int(dilation) != dilation or not 0 < dilation < x.shape[1]:
+        raise ValueError(f"tap_conv needs an integer dilation in (0, T={x.shape[1]}), got {dilation}")
+    if x.is_cuda:
+        return _launch_conv(x, w, int(dilation), transposed)
+    if x.device.type != "cpu":
+        raise ValueError(f"tap_conv runs on CUDA or CPU tensors, got {x.device}")
+    return tap_conv_plain(x, flip_taps(w) if transposed else w, int(dilation))
 
 
 def tap_conv(x: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
     """(B, T, Cout) dilated k=3 'SAME' conv of x (B, T, Cin) with w (3, Cin,
     Cout) in x's dtype, f32 accumulation. Raises ValueError unless
     0 < dilation < T, the domain of the JAX kernel."""
-    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != 3 or w.shape[1] != x.shape[2]:
-        raise ValueError(f"tap_conv shapes: x (B, T, Cin), w (3, Cin, Cout); got {tuple(x.shape)}, {tuple(w.shape)}")
-    if int(dilation) != dilation or not 0 < dilation < x.shape[1]:
-        raise ValueError(f"tap_conv needs an integer dilation in (0, T={x.shape[1]}), got {dilation}")
-    if x.is_cuda:
-        return _launch_conv(x, w, int(dilation))
-    if x.device.type != "cpu":
-        raise ValueError(f"tap_conv runs on CUDA or CPU tensors, got {x.device}")
-    return tap_conv_plain(x, w, int(dilation))
+    return _conv(x, w, dilation, False)
+
+
+def tap_conv_transposed(x: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """``tap_conv(x, flip_taps(w), dilation)`` for x (B, T, Cout) and w (3,
+    Cin, Cout): the dx of the conv with w, as ``PallasTapConv``'s backward
+    takes it. On the card K5 reads ``w.flip(0)``, one copy of the weights."""
+    return _conv(x, w, dilation, True)
 
 
 tap_conv.launches = 0  # kernel launches (CUDA tensors only)
@@ -160,8 +244,8 @@ def flip_taps(w: torch.Tensor) -> torch.Tensor:
 
 class PallasTapConv(torch.autograd.Function):
     """The JAX ``pallas_tap_conv`` custom VJP (``tap_conv.py:191-212`` of the
-    JAX package): forward K5; dx = K5 on ``flip_taps(W)``; dW = K2, cast to
-    W's dtype."""
+    JAX package): forward K5; dx = K5 on ``flip_taps(W)``
+    (``tap_conv_transposed``); dW = K2, cast to W's dtype."""
 
     @staticmethod
     def forward(ctx, x, w, dilation: int):
@@ -174,6 +258,6 @@ class PallasTapConv(torch.autograd.Function):
         x, w = ctx.saved_tensors
         d = ctx.dilation
         g = g.to(x.dtype).contiguous()
-        dx = tap_conv(g, flip_taps(w), d) if ctx.needs_input_grad[0] else None
+        dx = tap_conv_transposed(g, w, d) if ctx.needs_input_grad[0] else None
         dw = tap_conv_dw(x, g, d).to(w.dtype) if ctx.needs_input_grad[1] else None
         return dx, dw, None

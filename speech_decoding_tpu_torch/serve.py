@@ -32,9 +32,11 @@ import numpy as np
 
 def build_decoder(args, device=None):
     """A ``SpeechDecoder`` from a reference torch checkpoint
-    (``torch_checkpoint=``, computing in ``tpu.compute_dtype``) or from a
-    checkpoint of the port's trainer (``checkpoint.dir=``, with
-    ``eval.best`` and ``eval.epoch``; the encoder from the config)."""
+    (``torch_checkpoint=``; the encoder computes in f32 whatever
+    ``tpu.compute_dtype`` says, as ``tools/serve.py`` builds the JAX encoder
+    with its default dtype) or from a checkpoint of the port's trainer
+    (``checkpoint.dir=``, with ``eval.best`` and ``eval.epoch``; the encoder
+    from the config, as it was trained)."""
     import torch
 
     from speech_decoding_tpu_torch.data.layout import ch_locations_2d
@@ -58,8 +60,8 @@ def build_decoder(args, device=None):
     sd = torch.load(torch_ckpt, map_location="cpu", weights_only=True)
     params, batch_stats, dims = brain_encoder_from_torch(sd)
     encoder = BrainEncoder(
-        num_subjects=dims["S"], loc=loc, D1=dims["D1"], D2=dims["D2"], F=dims["F"],
-        K=dims["K"], compute_dtype=getattr(torch, str(args.select("tpu.compute_dtype", "float32"))),
+        num_subjects=dims["S"], loc=loc, D1=dims["D1"], D2=dims["D2"], F=dims["F"], K=dims["K"],
+        compute_dtype=torch.float32,
     )
     load_flax(encoder, params, batch_stats)
     return SpeechDecoder(encoder, device=device)

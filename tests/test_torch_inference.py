@@ -198,3 +198,32 @@ def test_serve_cli_builds_decoder_from_torch_checkpoint(tmp_path, model):
     bank_path = tmp_path / "bank.npz"
     np.savez(bank_path, bank=np.zeros((2, 8, 20), np.float32))
     assert serve.load_bank(str(bank_path)).shape == (2, 8, 20)
+
+
+def test_serve_cli_torch_checkpoint_is_f32_under_the_default_config(tmp_path, model):
+    """With the default config (``tpu.compute_dtype`` bfloat16, no override)
+    a ``torch_checkpoint=`` encoder still computes in f32, as
+    ``tools/serve.py`` builds the JAX encoder: every parameter is f32 and
+    ``encode`` matches the JAX encoder at rtol 1e-4, atol 1e-5."""
+    from speech_decoding_tpu.models.torch_port import brain_encoder_from_torch as jax_import
+    from speech_decoding_tpu_torch import serve
+    from speech_decoding_tpu_torch.config import load_config
+    from test_torch_models import _reference_state_dict
+
+    sd = _reference_state_dict(np.random.default_rng(11), S_=2, D1=12, D2=10, F_=8, K_=2)
+    path = tmp_path / "model_last.pt"
+    torch.save(sd, path)
+    args = load_config(None, [f"torch_checkpoint={path}", "dataset=Brennan2018"])
+    assert str(args.select("tpu.compute_dtype")) == "bfloat16"
+    args.root_dir = str(tmp_path)
+    dec = serve.build_decoder(args, device="cpu")
+    assert dec.encoder.compute_dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in dec.encoder.parameters())
+    loc = ch_locations_2d("Brennan2018", cache=False)
+    params, stats, _ = jax_import(sd)
+    jenc = JaxEncoder(num_subjects=2, loc=loc, D1=12, D2=10, F=8, K=2)
+    X = np.random.default_rng(1).normal(size=(3, 60, 20)).astype(np.float32)
+    ids = np.array([0, 1, 1], np.int32)
+    want = np.asarray(jenc.apply({"params": params, "batch_stats": stats}, jnp.asarray(X),
+                                 jnp.asarray(ids), train=False))
+    np.testing.assert_allclose(dec.encode(X, ids).numpy(), want, rtol=1e-4, atol=1e-5)

@@ -16,7 +16,7 @@ from speech_decoding_tpu_torch.ops.retrieval import (  # noqa: E402
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain  # noqa: E402
 from speech_decoding_tpu_torch.ops import conv_block_train as cbt  # noqa: E402
 from speech_decoding_tpu_torch.ops.tap_conv import (  # noqa: E402
-    PallasTapConv, flip_taps, tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain,
+    PallasTapConv, flip_taps, tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain, tap_conv_transposed,
 )
 
 pytestmark = pytest.mark.cuda
@@ -240,6 +240,38 @@ def test_tap_conv_dw_rejects(dev):
         tap_conv_dw(x, torch.zeros(2, 8, 4), 1)
 
 
+# the bf16 bodies read x and g (K5: x and its packed weights) through TMA,
+# which needs 16-byte row strides and bases: 270 channels and misaligned
+# views reach the kernels as padded or realigned copies
+@pytest.mark.parametrize("B,T,cin,cout,d", [(1, 360, 272, 270, 2), (2, 40, 270, 272, 4), (3, 13, 272, 272, 16),
+                                            (1, 50, 270, 270, 16), (2, 200, 320, 640, 8)])
+def test_tap_conv_dw_bf16_edges(dev, B, T, cin, cout, d):
+    """270- and 272-channel x and g, T under one 64-row chunk, B=1, d >= T
+    (the shifted taps are zero)."""
+    g = torch.Generator(device=dev).manual_seed(B + T + cin + cout + d)
+    x = torch.randn(B, T, cin, device=dev, generator=g).bfloat16()
+    gy = torch.randn(B, T, cout, device=dev, generator=g).bfloat16()
+    before = tap_conv_dw.launches
+    got = tap_conv_dw(x, gy, d)
+    assert tap_conv_dw.launches == before + 1 and got.shape == (3, cin, cout)
+    _close_scaled(got, tap_conv_dw_plain(x, gy, d), 1e-4)
+    if d >= T:
+        assert not got[0].any() and not got[2].any()
+
+
+@pytest.mark.parametrize("which", ["x", "g"])
+def test_tap_conv_dw_bf16_misaligned_base(dev, which):
+    """A contiguous view that starts 2 bytes into its allocation: copied to
+    an aligned buffer, same answer as the plain version."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    shapes = {"x": (4, 90, 320), "g": (4, 90, 320)}
+    t = {k: torch.randn(*v, device=dev, generator=g).bfloat16() for k, v in shapes.items()}
+    flat = torch.zeros(t[which].numel() + 1, device=dev, dtype=torch.bfloat16)
+    t[which] = flat[1:].view(shapes[which]).copy_(t[which])
+    assert t[which].data_ptr() % 16
+    _close_scaled(tap_conv_dw(t["x"], t["g"], 4), tap_conv_dw_plain(t["x"], t["g"], 4), 1e-4)
+
+
 @pytest.mark.parametrize("B,D", [(333, 1004), (333, 1001), (512, 36864), (1, 8), (130, 3)])
 def test_retrieval_ranks_kernel(dev, B, D):
     """Ranks equal the plain version's except on listed near-tie rows. D=1004
@@ -344,6 +376,57 @@ def test_tap_conv_rejects(dev):
         tap_conv(x, torch.zeros(3, 16, 4, device=dev), 8)
     with pytest.raises(ValueError, match="contiguous"):
         tap_conv(x, torch.zeros(3, 4, 16, device=dev).transpose(1, 2), 1)
+
+
+@pytest.mark.parametrize("B,T,cin,cout,d", [(1, 360, 272, 270, 2), (2, 40, 270, 272, 4), (1, 17, 272, 272, 16),
+                                            (3, 100, 270, 270, 8), (2, 130, 640, 320, 1)])
+def test_tap_conv_bf16_edges(dev, B, T, cin, cout, d):
+    """270- and 272-channel x and outputs (the dx of block 0's conv0 writes
+    270), T under one 128-row tile and just over it, B=1, d just under T."""
+    g = torch.Generator(device=dev).manual_seed(B + T + cin + cout + d)
+    x = torch.randn(B, T, cin, device=dev, generator=g).bfloat16()
+    w = torch.randn(3, cin, cout, device=dev, generator=g).div((3 * cin) ** 0.5).bfloat16()
+    before = tap_conv.launches
+    got = tap_conv(x, w, d)
+    assert tap_conv.launches == before + 1 and got.shape == (B, T, cout)
+    _close_scaled(got, tap_conv_plain(x, w, d), 1e-2)
+
+
+@pytest.mark.parametrize("which", ["x", "w"])
+def test_tap_conv_bf16_misaligned_base(dev, which):
+    g = torch.Generator(device=dev).manual_seed(12)
+    shapes = {"x": (3, 70, 320), "w": (3, 320, 160)}
+    t = {k: torch.randn(*v, device=dev, generator=g).div(31 if k == "w" else 1).bfloat16() for k, v in shapes.items()}
+    flat = torch.zeros(t[which].numel() + 1, device=dev, dtype=torch.bfloat16)
+    t[which] = flat[1:].view(shapes[which]).copy_(t[which])
+    assert t[which].data_ptr() % 16
+    _close_scaled(tap_conv(t["x"], t["w"], 2), tap_conv_plain(t["x"], t["w"], 2), 1e-2)
+
+
+@pytest.mark.parametrize("B,T,cin,cout,d", [(1, 360, 270, 320, 2), (2, 40, 272, 270, 4), (1, 17, 320, 640, 16),
+                                            (3, 100, 270, 270, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tap_conv_transposed(dev, B, T, cin, cout, d, dtype):
+    """K5's dx as PallasTapConv's backward launches it: g (B, T, Cout) with
+    the forward's w (3, Cin, Cout), against the plain conv with
+    flip_taps(w); 270-channel outputs (block 0's conv0) and inputs, B=1,
+    T under one 128-row tile."""
+    g = torch.Generator(device=dev).manual_seed(B + T + cin + cout + d)
+    gy = torch.randn(B, T, cout, device=dev, generator=g).to(dtype)
+    w = torch.randn(3, cin, cout, device=dev, generator=g).div((3 * cin) ** 0.5).to(dtype)
+    before = tap_conv.launches
+    got = tap_conv_transposed(gy, w, d)
+    assert tap_conv.launches == before + 1 and got.shape == (B, T, cin)
+    _close_scaled(got, tap_conv_plain(gy, flip_taps(w), d), 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_tap_conv_transposed_misaligned_weights(dev):
+    g = torch.Generator(device=dev).manual_seed(13)
+    gy = torch.randn(3, 70, 160, device=dev, generator=g).bfloat16()
+    w = torch.randn(3, 320, 160, device=dev, generator=g).div(31).bfloat16()
+    wm = torch.zeros(w.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(w.shape).copy_(w)
+    assert wm.data_ptr() % 16
+    _close_scaled(tap_conv_transposed(gy, wm, 2), tap_conv_plain(gy, flip_taps(w), 2), 1e-2)
 
 
 def _k6_close(got, want, rel):
