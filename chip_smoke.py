@@ -11,10 +11,15 @@ What it does, in order (one JSON object per line on stdout):
      ``speech_decoding_tpu_torch/csrc`` with ``nvcc`` (one process per source,
      all started together) and times it;
   3. K1 ``subject_matmul`` against its plain version, f32 and bf16, at the
-     serving shape (B=64, T=360, D1=270, S=27, mixed subject ids) and at a
-     ragged small shape; an out-of-range id must raise. Then K1's backward
-     (dX through the kernel on Wᵀ, dW by segment sum): the autograd grads
-     against the plain version's, f32 and bf16, at both shapes;
+     serving shape (B=64, T=360, D1=270, S=27, mixed subject ids), at a
+     ragged small shape, at the eval chunk (B=1024), with every id on one
+     odd subject, with every id distinct, and with a misaligned x and W,
+     each line with the body it took (the flagship and B=1024 must take
+     ``wgmma``); the pack kernel bit for bit against ``pack_weights``; an
+     out-of-range id must raise. Then K1's backward (dX through the kernel
+     on Wᵀ, dW by segment sum): the autograd grads against the plain
+     version's, f32 and bf16, at both shapes (the flagship's dX must take
+     ``wgmma``), and with a misaligned g;
   3b. K2 ``tap_conv_dw`` against ``tap_conv_dw_plain``: bf16 at B=64, T=360
      for every (Cin, Cout, dilation) of the flagship's 15 k=3 convs, f32 at
      B=4, ragged shapes (Cin=270, T=13 with d=16 >= T, T=37, B=3), and for
@@ -56,7 +61,8 @@ What it does, in order (one JSON object per line on stdout):
      ``decoder.decode`` of the same rows. All four launch counters are set
      to 0 just before and read just after; K1 and K4 must have launched;
   7. timings with CUDA events (kernel, plain version, one PyTorch call where
-     one exists, the bound for this card), the fused vs module encode with
+     one exists, the bound for this card; K1 with and without its weight
+     pack, and the decode's pack count, which must be 0), the fused vs module encode with
      the input on the card, retrieval against each bank, and one whole
      decode on the host clock; kernel launches per decode;
   8. one train step at full width in f32 (B=8), on the card and on the CPU
@@ -81,13 +87,17 @@ What it does, in order (one JSON object per line on stdout):
      config's ``tpu.eval_chunk_size`` as the trainer takes them; launches
      must be K1 one per chunk and K3 one; timed; then the same eval with the
      ``pallas_taps`` encoder: K5 15 per chunk, K1 one per chunk, K3 one;
-  11. timings of K1's backward dX, K2 (each of the 15 launches of a step and
-     their sum), K5 (the 30 launches of a ``pallas_taps`` step, against
-     ``F.conv1d``), K2 and K5 each by CUDA events and on the device alone
-     (kernel durations summed from ``torch.profiler``) with the share of the
-     bound, K6 per block (F1+F2+F3 and B1+B2+B3 beside the module
-     ``ConvBlock`` forward and backward) and K3 at B=2048: kernel, plain,
-     library yardstick, bound; K3 and its yardstick with and without the
+  11. timings of K1's backward dX (Wᵀ packed in the call, as each step
+     does), K2 (each of the 15 launches of a step and their sum), K5 (the 30
+     launches of a ``pallas_taps`` step, against ``F.conv1d``), K1 dX, K2,
+     K5, K6 and K3 each by CUDA events and on the device alone (kernel
+     durations summed from ``torch.profiler``) with the share of the bound;
+     K1's forward (beside the wmma body, the flagship's route before the
+     wgmma body, and ``torch.bmm``) and K4 on the device alone, taken only
+     here because a profiler trace slows every later launch on the host; K6
+     per block (F1+F2+F3 and B1+B2+B3 beside the module ``ConvBlock``
+     forward and backward) and K3 at B=2048: kernel, plain, library
+     yardstick, bound; K3 and its yardstick with and without the
      preparation (cast, norms, diagonal);
   12. the K7 tool path: ``speech_decoding_tpu_torch.tools.bench_cross_block_merge``
      (equivalence, then the split pair and the merged kernel timed), re-emitted
@@ -109,7 +119,7 @@ What it does, in order (one JSON object per line on stdout):
      K4), its top-10 hit rate within 2/64 of the same orientation computed
      through the eval path from the same checkpoint;
   14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, each with its
-     launches by path), the card line again, and last ``{"ok": true,
+     launches by path; K1–K6 with their device ms), the card line again, and last ``{"ok": true,
      "device": {...}}``.
 
 Any mismatch or exception exits non-zero without the last line; so does a
@@ -181,9 +191,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, got, want, atol: float, rtol: float, show: bool = True) -> float:
+def compare(name: str, got, want, atol: float, rtol: float, show: bool = True, **extra) -> float:
     """Elementwise |got - want| <= atol + rtol·|want| (in f32); raises
-    otherwise. Prints a ``check`` line unless ``show`` is false; returns max |Δ|."""
+    otherwise. Prints a ``check`` line (with ``extra``) unless ``show`` is
+    false; returns max |Δ|."""
     import torch
 
     torch.cuda.synchronize()
@@ -194,7 +205,7 @@ def compare(name: str, got, want, atol: float, rtol: float, show: bool = True) -
     worst = float((err - rtol * w.abs()).max())
     max_abs = float(err.max())
     if show:
-        emit(check=name, max_abs_err=max_abs, max_abs_ref=float(w.abs().max()), atol=atol, rtol=rtol)
+        emit(check=name, max_abs_err=max_abs, max_abs_ref=float(w.abs().max()), atol=atol, rtol=rtol, **extra)
     if worst > atol:
         raise AssertionError(f"{name}: max |got - want| - rtol·|want| = {worst} > {atol}")
     return max_abs
@@ -288,6 +299,7 @@ def main() -> int:
             near_tie_rows, retrieval_metrics_kernel, retrieval_ranks, retrieval_ranks_plain,
         )
         from speech_decoding_tpu_torch.ops.scaling import window_scale_stats
+        from speech_decoding_tpu_torch.ops import subject_conv as sc
         from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain
         from speech_decoding_tpu_torch.ops.tap_conv import (
             flip_taps, tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain, tap_conv_transposed,
@@ -347,14 +359,42 @@ def main() -> int:
         ids = torch.from_numpy(rng.integers(0, s, size=b).astype(np.int32)).to(dev)
         return x, w, ids
 
+    # the route each product took ("wgmma": the Hopper body, x read where it
+    # lies; "wmma": ragged shapes and misaligned bases; "f32"); the flagship
+    # and the eval chunk must take the wgmma body, forward and dX
+    def k1_check(name, x, w, ids, atol, rtol, want_route=None):
+        got = subject_matmul(x, w, ids)
+        route = subject_matmul.route
+        k1_err[name] = compare(name, got, subject_matmul_plain(x, w, ids), atol, rtol, route=route)
+        if want_route and route != want_route:
+            raise AssertionError(f"{name} took the {route} body, expected {want_route}")
+
     k1_err = {}
     for dtype, atol, rtol in ((f32, 1e-5, 1e-5), (bf16, 1e-2, 1e-2)):
         for shape in ((B, T, D1, D1, S), (3, 37, 19, 150, 4)):
             x, w, ids = k1_inputs(*shape, dtype)
-            name = f"K1 {str(dtype)[6:]} {shape}"
-            k1_err[name] = compare(name, subject_matmul(x, w, ids), subject_matmul_plain(x, w, ids), atol, rtol)
+            want_route = "f32" if dtype == f32 else "wgmma" if shape[0] == B else "wmma"
+            k1_check(f"K1 {str(dtype)[6:]} {shape}", x, w, ids, atol, rtol, want_route)
+    x, w, ids = k1_inputs(1024, T, D1, D1, S, bf16)  # the eval chunk
+    k1_check(f"K1 bf16 {(1024, T, D1, D1, S)}", x, w, ids, 1e-2, 1e-2, "wgmma")
+    x, w, ids = k1_inputs(B, T, D1, D1, S, bf16)
+    k1_check(f"K1 bf16 {(B, T, D1, D1, S)} every id 13 (an odd subject)", x, w, torch.full_like(ids, 13),
+             1e-2, 1e-2, "wgmma")
+    k1_check(f"K1 bf16 {(S, T, D1, D1, S)} every id distinct", x[:S], w,
+             torch.randperm(S, generator=gen).to(dev, torch.int32), 1e-2, 1e-2, "wgmma")
+    k1_check(f"K1 bf16 {(B, T, D1, D1, S)} misaligned x", misaligned(x), w, ids, 1e-2, 1e-2, "wmma")
+    k1_check(f"K1 bf16 {(B, T, D1, D1, S)} misaligned W", x, misaligned(w), ids, 1e-2, 1e-2, "wgmma")
+    # the weight image: the pack kernel against its plain version, bit for bit
+    for transposed in (False, True):
+        sc._packs.clear()
+        img = sc.packed_weights(w, transposed)
+        torch.cuda.synchronize()
+        if not torch.equal(img, sc.pack_weights(w, transposed)):
+            raise AssertionError(f"K1 pack kernel (transposed={transposed}) differs from pack_weights")
+        emit(check=f"K1 pack kernel {'Wᵀ ' if transposed else ''}(S, {D1}, {D1}) against pack_weights",
+             bitwise_equal=True)
     try:
-        subject_matmul(x, w, torch.full_like(ids, 4))
+        subject_matmul(x, w, torch.full_like(ids, w.shape[0]))
         raise AssertionError("K1 accepted an out-of-range subject id")
     except ValueError:
         emit(check="K1 rejects an out-of-range subject id")
@@ -372,9 +412,22 @@ def main() -> int:
                 xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
                 fn(xa, wa, ids).backward(gy)
                 grads.append((xa.grad, wa.grad))
+                if fn is subject_matmul:
+                    route = subject_matmul.route  # the dX's
+            if dtype == bf16 and shape[0] == B and route != "wgmma":
+                raise AssertionError(f"K1 backward dX at the flagship took the {route} body")
             for part, got, want in zip(("dX", "dW"), *grads):
                 name = f"K1 backward {part} {str(dtype)[6:]} {shape}"
-                k1b_err[name] = compare(name, got, want, rel * float(want.abs().max()), rel)
+                k1b_err[name] = compare(name, got, want, rel * float(want.abs().max()), rel,
+                                        **({"route": route} if part == "dX" else {}))
+    # a misaligned g: the dX takes the wmma body on a copy and must match
+    x, w, ids = k1_inputs(B, T, D1, D1, S, bf16)
+    gy = torch.randn(B, T, D1, generator=gen).to(dev, bf16)
+    xa = x.clone().requires_grad_()
+    subject_matmul(xa, w, ids).backward(misaligned(gy))
+    want = subject_matmul_plain(gy, w.transpose(1, 2), ids)
+    name = f"K1 backward dX bf16 {(B, T, D1, D1, S)} misaligned g"
+    k1b_err[name] = compare(name, xa.grad, want, 1e-2 * float(want.abs().max()), 1e-2, route=subject_matmul.route)
 
     # -- 3b. K2 vs plain -----------------------------------------------------
     # bf16 x and g: products exact in f32, both sides sum in f32 in another
@@ -704,19 +757,46 @@ def main() -> int:
 
     # -- 7. timings at the serving shape (bf16, B=64) ---------------------------
     reset_counts()
+    packs = sc.packed_weights.packs
     decoder.decode(X, sidx, k=10)
     per_decode = read_counts()
+    packs_per_decode = sc.packed_weights.packs - packs
+    if packs_per_decode:
+        raise AssertionError(f"a decode on unchanged weights packed K1's weights {packs_per_decode} times")
     x, w, ids = k1_inputs(B, T, D1, D1, S, bf16)
     ids_host = ids.cpu()  # as serving and training pass them: checked on the host, no wait
+    subject_matmul(x, w, ids_host)
+    k1_route = subject_matmul.route
+
+    def k1_pack(w_, transposed):
+        """W's (or Wᵀ's) weight image made anew: one pack-kernel launch."""
+        sc._packs.pop(transposed, None)
+        return sc.packed_weights(w_, transposed)
+
+    def k1_fresh(a, w_, ids_, transposed):
+        """The product with its weight image made anew, as a train step runs
+        it (a new bf16 cast of W each step): pack kernel, then the kernel."""
+        k1_pack(w_, transposed)
+        return sc._apply(a, w_, ids_, transposed)
+
+    # kernel_ms: the serving call (host ids, image cached); with_pack_ms: the
+    # image made in the call, as in training; device times in phase 11
     k1_ms = time_ms(lambda: subject_matmul(x, w, ids_host))
+    k1_pack_ms = time_ms(lambda: k1_fresh(x, w, ids, False))
     k1_plain = time_ms(lambda: subject_matmul_plain(x, w, ids))
     k1_lib = time_ms(lambda: torch.bmm(x, w[ids.long()]))
+    k1_args = (x, w, ids, ids_host)
     present = int(torch.unique(ids).numel())
     k1_bound, k1_by = bound_ms(2 * B * T * D1 * D1,
                                nbytes(x, ids) + present * D1 * D1 * 2 + B * T * D1 * 2, peaks, "bf16")
-    emit(timing="K1 subject_matmul", shape=[B, T, D1, D1, S], dtype="bf16", kernel_ms=k1_ms,
-         plain_ms=k1_plain, library_ms=k1_lib, library="torch.bmm over W[sidx]",
-         bound_ms=k1_bound, bound_by=k1_by, launches_per_decode=per_decode["subject_matmul"])
+
+    def pct(ms):
+        return 100 * k1_bound / ms if ms else "not measured"
+
+    emit(timing="K1 subject_matmul", shape=[B, T, D1, D1, S], dtype="bf16", route=k1_route, kernel_ms=k1_ms,
+         pct_of_bound=pct(k1_ms), with_pack_ms=k1_pack_ms, plain_ms=k1_plain, library_ms=k1_lib,
+         library="torch.bmm over W[sidx] (the gather included)", bound_ms=k1_bound, bound_by=k1_by,
+         launches_per_decode=per_decode["subject_matmul"], packs_per_decode=packs_per_decode)
 
     k4 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     for k in range(5):
@@ -729,7 +809,8 @@ def main() -> int:
         moved = nbytes(x, *args_k) + B * T * D2 * 2
         bnd, by = bound_ms(flops, moved, peaks, "bf16")
         emit(timing=f"K4 conv_block_fused k={k}", shape=[B, T, cin, D2], dtype="bf16", kernel_ms=ms,
-             plain_ms=plain, library_ms=None, library="none: no single PyTorch call computes a ConvBlock",
+             plain_ms=plain, library_ms=None,
+             library="none: no single PyTorch call computes a ConvBlock",
              bound_ms=bnd, bound_by=by, gflop=flops / 1e9, mbytes=moved / 1e6,
              launches_per_decode=per_decode["conv_block_fused"] / 5)
         k4["ms"] += ms
@@ -948,16 +1029,62 @@ def main() -> int:
     del ebatch, Xe
 
     # -- 11. timings of the train and eval kernels ---------------------------
+    # dX as the backward runs it every step: Wᵀ's image packed from W in the
+    # call (ids already on the card), then the product; the library call
+    # gathers Wᵀ[sidx] from the same W
     x, w, ids = k1_inputs(B, T, D1, D1, S, bf16)
     gy = torch.randn(B, T, D1, generator=gen).to(dev, bf16)
-    wT = w.transpose(1, 2).contiguous()
-    ids_host = ids.cpu()
-    k1b_ms = time_ms(lambda: subject_matmul(gy, wT, ids_host))
+    wT = w.transpose(1, 2)
+    k1_fresh(gy, w, ids, True)
+    k1b_route = subject_matmul.route
+    compare("K1 dX at the flagship (timed call)", k1_fresh(gy, w, ids, True), subject_matmul_plain(gy, wT, ids),
+            1e-2, 1e-2, show=False)
+    k1b_ms = time_ms(lambda: k1_fresh(gy, w, ids, True))
     k1b_plain = time_ms(lambda: subject_matmul_plain(gy, wT, ids))
     k1b_lib = time_ms(lambda: torch.bmm(gy, wT[ids.long()]))
-    emit(timing="K1 backward dX (subject_matmul on g and Wᵀ)", shape=[B, T, D1, D1, S], dtype="bf16",
-         kernel_ms=k1b_ms, plain_ms=k1b_plain, library_ms=k1b_lib, library="torch.bmm over Wᵀ[sidx]",
+
+    # device times (torch.profiler) of K1 and K4, taken only now: a
+    # profiler trace leaves tracing attached that slows every later launch
+    # on the host, so none is taken before the train phases' timings
+    k1b_dev = device_ms(lambda: k1_fresh(gy, w, ids, True))
+    packT_dev = device_ms(lambda: k1_pack(w, True))
+    k1b_lib_dev = device_ms(lambda: torch.bmm(gy, wT[ids.long()]))
+    emit(timing="K1 backward dX (the product on g and Wᵀ, Wᵀ's image packed in the call)",
+         shape=[B, T, D1, D1, S], dtype="bf16", route=k1b_route, kernel_ms=k1b_ms,
+         device_ms=k1b_dev or "not measured", pct_of_bound=pct(k1b_ms), device_pct_of_bound=pct(k1b_dev),
+         pack_device_ms=packT_dev or "not measured", plain_ms=k1b_plain, library_ms=k1b_lib,
+         library_device_ms=k1b_lib_dev or "not measured", library="torch.bmm over Wᵀ[sidx] (the gather included)",
          bound_ms=k1_bound, bound_by=k1_by, launches_per_train_step=per_step["subject_matmul"])
+    x, w, ids, ids_host = k1_args  # the forward's inputs of phase 7
+    k1_dev = device_ms(lambda: subject_matmul(x, w, ids_host))
+    k1_pack_dev = device_ms(lambda: k1_fresh(x, w, ids, False))
+    pack_dev = device_ms(lambda: k1_pack(w, False))
+    k1_lib_dev = device_ms(lambda: torch.bmm(x, w[ids.long()]))
+    # the wmma body (the flagship's route before the wgmma body, kept for other shapes), called directly
+    wmma_out = torch.empty_like(x)
+
+    def k1_wmma():
+        sc._entry("subject_matmul_bf16")(x.data_ptr(), w.data_ptr(), ids.data_ptr(), 0, wmma_out.data_ptr(),
+                                         B, T, D1, D1, torch.cuda.current_stream().cuda_stream)
+
+    k1_wmma()
+    compare("K1 wmma body at the flagship", wmma_out, subject_matmul_plain(x, w, ids),
+            1e-2, 1e-2, show=False)
+    k1_wmma_dev = device_ms(k1_wmma)
+    emit(timing="K1 subject_matmul on the device (the inputs of phase 7's line)", shape=[B, T, D1, D1, S],
+         dtype="bf16", device_ms=k1_dev or "not measured", device_pct_of_bound=pct(k1_dev),
+         with_pack_device_ms=k1_pack_dev or "not measured", pack_device_ms=pack_dev or "not measured",
+         library_device_ms=k1_lib_dev or "not measured", wmma_body_device_ms=k1_wmma_dev or "not measured",
+         wmma_body="the flagship's route before the wgmma body, called directly on the same inputs",
+         bound_ms=k1_bound, bound_by=k1_by)
+    k4_dev = []
+    for k in range(5):
+        x = torch.randn(B, T, D1 if k == 0 else D2, generator=gen).to(dev, bf16)
+        k4_dev.append(device_ms(lambda: conv_block_fused(x, *staged16[k], k=k)))
+    k4["device_ms"] = sum(k4_dev) if all(k4_dev) else None
+    emit(timing="K4 conv_block_fused on the device, blocks k=0..4", shape=[B, T, D1, D2], dtype="bf16",
+         device_ms=k4_dev, total_device_ms=k4["device_ms"] or "not measured")
+    del x, w, gy, wT, wmma_out, k1_args
 
     # kernel_ms by CUDA events around back-to-back wrapper calls; device_ms the
     # same calls' kernels alone (torch.profiler durations, the wrapper's
@@ -1054,13 +1181,15 @@ def main() -> int:
     def tensors(v):
         return [a for a in (v if isinstance(v, tuple) else (v,)) if torch.is_tensor(a)]
 
-    k6 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0, "module_ms": 0.0}
+    k6 = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0,
+          "module_ms": 0.0}
     fwd, bwd = ("F1", "F2", "F3"), ("B1", "B2", "B3")
     for k in range(5):
         cin = D1 if k == 0 else D2
         d0, d1 = dilations(k)
         ins = cbt.stage_inputs(B, T, cin, D2, k, bf16, dev, gk6)
         ms = {st: time_ms(lambda st=st: cbt.STAGES[st](*ins[st]), reps=10) for st in cbt.STAGES}
+        dms = device_ms(lambda: [cbt.STAGES[st](*ins[st]) for st in cbt.STAGES])  # the block's six stages
         plain = {st: time_ms(lambda st=st: cbt.PLAIN[st](*ins[st]), reps=3) for st in cbt.STAGES}
         flops = {"F1": conv_flops(cin, D2, d0), "F2": conv_flops(D2, D2, d1), "F3": conv_flops(D2, 2 * D2, 2),
                  "B1": 3 * conv_flops(D2, 2 * D2, 2), "B2": 2 * conv_flops(D2, D2, d1),
@@ -1074,6 +1203,7 @@ def main() -> int:
         mod_fb = time_ms(lambda: blk(xm, train=True).backward(gm), reps=10)
         emit(timing=f"K6 conv_block_train k={k}", shape=[B, T, cin, D2], dtype="bf16",
              forward_ms=sum(ms[s] for s in fwd), backward_ms=sum(ms[s] for s in bwd), per_stage_ms=ms,
+             device_ms=dms or "not measured",
              plain_forward_ms=sum(plain[s] for s in fwd), plain_backward_ms=sum(plain[s] for s in bwd),
              bound_forward_ms=sum(bounds[s][0] for s in fwd), bound_backward_ms=sum(bounds[s][0] for s in bwd),
              per_stage_bound={s: {"ms": b[0], "by": b[1], "gflop": flops[s] / 1e9, "mbytes": moved[s] / 1e6}
@@ -1082,6 +1212,7 @@ def main() -> int:
              module_backward_ms_by_subtraction=mod_fb - mod_f, library_ms=None,
              library="none: no single PyTorch call computes a ConvBlock; the module ConvBlock is beside it")
         k6["ms"] += sum(ms.values())
+        k6["device_ms"] = k6["device_ms"] + dms if dms and k6["device_ms"] is not None else None
         k6["plain_ms"] += sum(plain.values())
         k6["bound_ms"] += sum(b[0] for b in bounds.values())
         k6["flops"] += sum(flops.values())
@@ -1100,6 +1231,7 @@ def main() -> int:
         return ((torch.matmul(y, z.T) / torch.clamp_min(ny[:, None] * nz[None, :], eps)) > diag[:, None]).sum(1)
 
     k3_ms = time_ms(lambda: retrieval_ranks(Z, Y), reps=3, warmup=1)
+    k3_dev = device_ms(lambda: retrieval_ranks(Z, Y), reps=3)
     k3_plain = time_ms(lambda: retrieval_ranks_plain(Z, Y), reps=3, warmup=1)
     k3_lib = time_ms(lambda: k3_library(k3_module._prepare(Z, Y, eps)), reps=3, warmup=1)
     prepared = k3_module._prepare(Z, Y, eps)
@@ -1108,7 +1240,7 @@ def main() -> int:
     k3_lib_alone = time_ms(lambda: k3_library(prepared), reps=3, warmup=1)
     k3_bound, k3_by = bound_ms(2 * NE * NE * F * T, nbytes(Z, Y) + NE * 4, peaks, "f32")
     emit(timing="K3 retrieval_ranks", shape=[NE, F * T], dtype="Z bf16, Y f32 (cast to f32 inside)",
-         kernel_ms=k3_ms, plain_ms=k3_plain, library_ms=k3_lib,
+         kernel_ms=k3_ms, device_ms=k3_dev or "not measured", plain_ms=k3_plain, library_ms=k3_lib,
          library="torch.matmul(y, z.T) in f32 plus the compare-and-count, after the same preparation",
          prepare_ms=k3_prepare_ms, kernel_alone_ms=k3_alone_ms, library_alone_ms=k3_lib_alone,
          alone="on rows already cast to f32, with norms and diagonal: the O(B²·D) part only",
@@ -1303,7 +1435,13 @@ def main() -> int:
          "launches_by_path": {k: p["subject_matmul"] for k, p in paths.items()},
          "max_abs_err": max(k1_err.values()),
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": k1_lib, "backward_max_abs_err": max(k1b_err.values()), "backward_dx_ms": k1b_ms},
+         "library_ms": k1_lib, "device_ms": k1_dev or "not measured",
+         "library_device_ms": k1_lib_dev or "not measured", "body": k1_route,
+         "with_pack_ms": k1_pack_ms, "with_pack_device_ms": k1_pack_dev or "not measured",
+         "pack_device_ms": pack_dev or "not measured", "wmma_body_device_ms": k1_wmma_dev or "not measured",
+         "backward_max_abs_err": max(k1b_err.values()), "backward_dx_ms": k1b_ms,
+         "backward_dx_device_ms": k1b_dev or "not measured", "backward_dx_library_ms": k1b_lib,
+         "backward_dx_library_device_ms": k1b_lib_dev or "not measured"},
         {"name": "conv_block_fused", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/conv_block.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/conv_block.py:92",
@@ -1311,7 +1449,7 @@ def main() -> int:
          "launches_by_path": {k: p["conv_block_fused"] for k, p in paths.items()},
          "max_abs_err": max(k4_err.values()),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4_by,
-         "library_ms": None},
+         "library_ms": None, "device_ms": k4["device_ms"] or "not measured", "timed": "the five blocks of one decode"},
         {"name": "tap_conv_dw", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/tap_conv_dw.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/tap_conv.py:144",
@@ -1328,7 +1466,7 @@ def main() -> int:
          "launches_by_path": {k: p["retrieval_ranks"] for k, p in paths.items()},
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": k3_lib},
+         "library_ms": k3_lib, "device_ms": k3_dev or "not measured"},
         {"name": "tap_conv", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/tap_conv.cu",
          "header": "speech_decoding_tpu_torch/csrc/hopper.cuh (bf16), speech_decoding_tpu_torch/csrc/tap3.cuh (f32)",
@@ -1348,7 +1486,7 @@ def main() -> int:
          "launches_by_stage": {st: launches_of(f"conv_block_train.{st}") for st in cbt.STAGES},
          "max_abs_err": max(k6_err.values()),
          "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6_by,
-         "library_ms": None, "module_blocks_ms": k6["module_ms"],
+         "library_ms": None, "module_blocks_ms": k6["module_ms"], "device_ms": k6["device_ms"] or "not measured",
          "timed": "the six stages of all five blocks, one step's forward and backward"},
         {"name": "f31", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/conv_block_train.cu",

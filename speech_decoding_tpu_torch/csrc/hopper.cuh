@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the bf16 bodies of K2
-// (tap_conv_dw.cu) and K5 (tap_conv.cu): TMA tensor maps, an mbarrier
-// ring, and warpgroup matrix multiplies (wgmma) read from shared memory.
+// (tap_conv_dw.cu), K5 (tap_conv.cu) and K1 (subject_matmul.cu): TMA tensor
+// maps and plain bulk copies, an mbarrier ring, and warpgroup matrix
+// multiplies (wgmma) read from shared memory (K1's with A from registers).
 //
-// Both kernels replace Pallas TPU kernels of
+// K1 replaces speech_decoding_tpu/ops/pallas/subject_conv.py; its layouts
+// are at the end of this file. K2 and K5 replace Pallas TPU kernels of
 // speech_decoding_tpu/ops/pallas/tap_conv.py (tap_conv_dw and tap_conv), a
 // dilated three-tap convolution written as a matrix product with shifted
 // operands. A tap is a row offset (t + (j - 1) d) of a TMA load from a 3-D
@@ -194,6 +196,75 @@ __device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], uint64_t desc_a
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// ---- K1 (subject_matmul.cu): plain bulk copies, unswizzled B, A from registers ----
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory in one bulk copy; completes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               ::"r"(smem_addr(dst)), "l"((uint64_t)src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from shared to
+// global memory in one bulk copy, in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"((uint64_t)dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until this thread's bulk stores have read their shared memory (READ)
+// or completed
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory visible to bulk copies
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// descriptor of an unswizzled tile of 8 x 16-byte core matrices (each 128
+// contiguous bytes); for a K-major operand `lead_bytes` steps to the next 8
+// elements of the reduction, `stride_bytes` to the next 8 rows
+__device__ __forceinline__ uint64_t desc_none(const void* tile, uint32_t lead_bytes, uint32_t stride_bytes) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | (uint64_t)((lead_bytes >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((stride_bytes >> 4) & 0x3FFF) << 32;
+}
+
+// D (64 x 136, f32, 68 registers a thread) += A (64 x 16, bf16, in registers:
+// the m16n8k16 A fragment of warp w's rows 16w .. 16w + 15, 4 x 2 bf16)
+// * B (16 x 136, bf16, K-major in shared memory)
+__device__ __forceinline__ void wgmma_m64n136k16_rs(float (&d)[68], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %73, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67"
+      "}, {%68, %69, %70, %71}, %72, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 }  // namespace hopper

@@ -11,9 +11,10 @@ Port of ``speech_decoding_tpu/inference.py``:
     continuous recording.
 
 The default encode on the card is the fused serving path: SubjectBlock
-(per-subject matmul kernel) -> five fused ConvBlock kernels -> two 1x1 GELU
-heads. ``use_fused_blocks=False`` runs the module forward instead (which
-takes the same per-subject kernel).
+(per-subject matmul kernel, its weights cast once like the fused blocks', so
+the kernel's weight image is packed once) -> five fused ConvBlock kernels ->
+two 1x1 GELU heads. ``use_fused_blocks=False`` runs the module forward
+instead (which takes the same per-subject kernel).
 The bank lives on the device. ``SpeechDecoder.from_checkpoint`` serves a
 checkpoint of the port's ``training.CheckpointManager`` (the latest, the
 best-model one or a given epoch). ``bank_from_audio`` and a sharded bank wait
@@ -30,6 +31,7 @@ from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder
 from speech_decoding_tpu_torch.ops.conv_block import apply_fused_stack, prepare_fused_stack
+from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
 from speech_decoding_tpu_torch.utils.device import resolve_device
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -101,6 +103,11 @@ class SpeechDecoder:
             prepare_fused_stack(self.encoder.conv_blocks, self.encoder.compute_dtype)
             if self.use_fused_blocks else None
         )
+        with torch.no_grad():
+            self._subject_w = (
+                self.encoder.subject_block.subject_kernel.detach().to(self.encoder.compute_dtype).contiguous()
+                if self.use_fused_blocks else None
+            )
         self._bank_norm: Optional[torch.Tensor] = None
         self._bank_q: Optional[torch.Tensor] = None
         self._bank_scale: Optional[torch.Tensor] = None
@@ -132,7 +139,8 @@ class SpeechDecoder:
         dt = enc.compute_dtype
         if not enc.channels_last_io:
             X = X.transpose(-1, -2)
-        h = enc.subject_block(X.to(dt), sidx)
+        sb = enc.subject_block  # SubjectBlock.forward on the weights cast once
+        h = subject_matmul(sb.conv(sb.spatial_attention(X.to(dt))).contiguous(), self._subject_w, sidx)
         h = apply_fused_stack(self._staged, h)
         for head in (enc.conv_final1, enc.conv_final2):
             h = Fn.gelu(head(h), approximate="none")

@@ -13,6 +13,7 @@ from speech_decoding_tpu_torch.ops import conv_block as tcb  # noqa: E402
 from speech_decoding_tpu_torch.ops.retrieval import (  # noqa: E402
     near_tie_rows, retrieval_ranks, retrieval_ranks_plain,
 )
+from speech_decoding_tpu_torch.ops import subject_conv as sc  # noqa: E402
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain  # noqa: E402
 from speech_decoding_tpu_torch.ops import conv_block_train as cbt  # noqa: E402
 from speech_decoding_tpu_torch.ops.tap_conv import (  # noqa: E402
@@ -184,6 +185,127 @@ def test_subject_matmul_backward(dev, dtype, shape):
     for got, want in zip(grads[0], grads[1]):
         assert got.dtype == dtype
         _close_scaled(got, want, rel)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose base lies one element past an allocation's start."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return flat[1:].view(t.shape).copy_(t)
+
+
+def _k1_inputs(dev, B, T, Din, Dout, S, seed, ids=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, T, Din, device=dev, generator=g).bfloat16()
+    w = torch.randn(S, Din, Dout, device=dev, generator=g).div(Din ** 0.5).bfloat16()
+    if ids is None:
+        ids = torch.randint(0, S, (B,), device=dev, generator=g, dtype=torch.int32)
+    return x, w, ids
+
+
+@pytest.mark.parametrize("B", [64, 1024])
+def test_subject_matmul_wgmma_route(dev, B):
+    """The flagship (B=64) and the eval chunk (B=1024) take the wgmma body;
+    bf16 against the plain version at 1e-2."""
+    x, w, ids = _k1_inputs(dev, B, 360, 270, 270, 27, seed=B)
+    before = subject_matmul.launches
+    got = subject_matmul(x, w, ids)
+    assert subject_matmul.launches == before + 1 and subject_matmul.route == "wgmma"
+    _close(got, subject_matmul_plain(x, w, ids), torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["one odd subject", "all distinct"])
+def test_subject_matmul_wgmma_ids(dev, case):
+    """Every row on subject 13 (an odd subject: its weights start at an odd
+    multiple of 145,800 bytes in W); every row on a different subject."""
+    if case == "one odd subject":
+        x, w, ids = _k1_inputs(dev, 64, 360, 270, 270, 27, seed=5,
+                               ids=torch.full((64,), 13, dtype=torch.int32, device=dev))
+    else:
+        perm = torch.randperm(27, generator=torch.Generator().manual_seed(6)).to(dev, torch.int32)
+        x, w, ids = _k1_inputs(dev, 27, 360, 270, 270, 27, seed=6, ids=perm)
+    got = subject_matmul(x, w, ids)
+    assert subject_matmul.route == "wgmma"
+    _close(got, subject_matmul_plain(x, w, ids), torch.bfloat16)
+
+
+def test_subject_matmul_misaligned_and_ragged(dev):
+    """A misaligned x takes the wmma body (copied first), a misaligned W the
+    wgmma body (the pack reads it element by element), a misaligned g the
+    wmma body for dX; the ragged shape the wmma body. All match the plain
+    version."""
+    x, w, ids = _k1_inputs(dev, 8, 360, 270, 270, 27, seed=7)
+    want = subject_matmul_plain(x, w, ids)
+    for xx, ww, route in ((_misaligned(x), w, "wmma"), (x, _misaligned(w), "wgmma")):
+        got = subject_matmul(xx, ww, ids)
+        assert subject_matmul.route == route
+        _close(got, want, torch.bfloat16)
+    gy = torch.randn(8, 360, 270, device=dev).bfloat16()
+    xa = x.clone().requires_grad_()
+    subject_matmul(xa, w, ids).backward(_misaligned(gy))
+    assert subject_matmul.route == "wmma"
+    _close(xa.grad, subject_matmul_plain(gy, w.transpose(1, 2), ids), torch.bfloat16)
+    x, w, ids = _k1_inputs(dev, 3, 37, 19, 150, 4, seed=8)
+    got = subject_matmul(x, w, ids)
+    assert subject_matmul.route == "wmma"
+    _close(got, subject_matmul_plain(x, w, ids), torch.bfloat16)
+
+
+def test_subject_matmul_backward_wgmma_route(dev):
+    """The flagship's dX through the wgmma body on the packed Wᵀ: two
+    launches for forward and backward, both on the new body."""
+    x, w, ids = _k1_inputs(dev, 64, 360, 270, 270, 27, seed=9)
+    gy = torch.randn(64, 360, 270, device=dev).bfloat16()
+    xa = x.clone().requires_grad_()
+    before, packs = subject_matmul.launches, sc.packed_weights.packs
+    out = subject_matmul(xa, w, ids)
+    assert subject_matmul.route == "wgmma"
+    out.backward(gy)
+    assert subject_matmul.launches == before + 2 and subject_matmul.route == "wgmma"
+    assert sc.packed_weights.packs - packs <= 2  # at most one a direction
+    _close(xa.grad, subject_matmul_plain(gy, w.transpose(1, 2), ids), torch.bfloat16)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_subject_matmul_pack_kernel(dev, transposed):
+    """The pack kernel writes the plain pack's image bit for bit, from an
+    aligned and a misaligned W; the cache hits until W changes in place."""
+    _, w, _ = _k1_inputs(dev, 1, 1, 270, 270, 27, seed=10)
+    for ww in (w, _misaligned(w)):
+        img = sc.packed_weights(ww, transposed)
+        torch.cuda.synchronize()
+        assert torch.equal(img, sc.pack_weights(ww, transposed))
+        assert sc.packed_weights(ww, transposed) is img
+    w.mul_(2)
+    img = sc.packed_weights(w, transposed)
+    assert torch.equal(img, sc.pack_weights(w, transposed))
+
+
+def test_subject_matmul_host_ids_copied_at_the_call(dev):
+    """Host ids reach the card through a pinned copy made at the call: a
+    change of the host array afterwards does not reach the launch."""
+    x, w, _ = _k1_inputs(dev, 64, 360, 270, 270, 27, seed=11)
+    ids = torch.arange(64, dtype=torch.int32) % 27
+    want = subject_matmul_plain(x, w, ids.to(dev))
+    got = subject_matmul(x, w, ids)
+    ids.fill_(0)
+    _close(got, want, torch.bfloat16)
+
+
+def test_subject_matmul_host_ids_ring_wraps(dev):
+    """70 calls of 1,000 host ids each run the pinned ring round more than a
+    lap (4 segments of 16,384 ids), each host array overwritten right after
+    its call: every output is that call's product."""
+    x, w, _ = _k1_inputs(dev, 1000, 8, 16, 16, 7, seed=12)
+    rng = torch.Generator().manual_seed(12)
+    outs, wants = [], []
+    ids = torch.empty(1000, dtype=torch.int32)
+    for _ in range(70):
+        ids.copy_(torch.randint(0, 7, (1000,), generator=rng, dtype=torch.int32))
+        wants.append(ids.clone())
+        outs.append(subject_matmul(x, w, ids))
+        ids.fill_(6)
+    for got, want_ids in zip(outs, wants):
+        _close(got, subject_matmul_plain(x, w, want_ids.to(dev)), torch.bfloat16)
 
 
 # (Cin, Cout, dilations) of the flagship's k=3 convs (D1=270, D2=320)
