@@ -34,10 +34,14 @@ What it does, in order (one JSON object per line on stdout):
      and 272-channel inputs and outputs (forward and dx), T under one
      128-row tile, B=1, (1, 2, 1, 1, 1), misaligned x and w (copied; they
      must match); two runs must give the same bits;
-  3d. K3 ``retrieval_ranks`` against ``retrieval_ranks_plain`` at B=2048,
-     D=F·T=368,640 and at a ragged B=333 with D off the tile; ranks must be
-     equal except on rows whose plain similarity has an entry within 1e-6 of
-     the diagonal (those rows are listed);
+  3d. K3 ``retrieval_ranks`` against ``retrieval_ranks_plain`` with Z bf16:
+     the ``wgmma`` body at B=2048 and at the Trainer's B=64 (the depth split
+     across SMs) at D=F·T=368,640 with Y f32 (three bf16 pieces), at B=64
+     with Y bf16 (one piece) and at a ragged B=333, D=1000; the f32
+     CUDA-core body at D=1001; each line with the body, pieces and depth
+     slices it took (asserted); ranks must be equal except on rows whose
+     plain similarity has an entry within 1e-6 of the diagonal (those rows
+     are listed);
   4. K4 ``conv_block_fused`` against its plain version for blocks k=0..4 at
      (64, 360, D) in bf16, in f32 at a smaller batch, and at a ragged shape
      where every dilation reaches both edges of the recording;
@@ -85,7 +89,8 @@ What it does, in order (one JSON object per line on stdout):
   10. the third main path, eval: ``training.make_chunked_eval`` over an
      assumed test set of 2048 segments after that training, in chunks of the
      config's ``tpu.eval_chunk_size`` as the trainer takes them; launches
-     must be K1 one per chunk and K3 one; timed; then the same eval with the
+     must be K1 one per chunk and K3 one, K3 on its ``wgmma`` body with three
+     pieces (asserted); timed; then the same eval with the
      ``pallas_taps`` encoder: K5 15 per chunk, K1 one per chunk, K3 one;
   11. timings of K1's backward dX (Wᵀ packed in the call, as each step
      does), K2 (each of the 15 launches of a step and their sum), K5 (the 30
@@ -96,9 +101,11 @@ What it does, in order (one JSON object per line on stdout):
      wgmma body, and ``torch.bmm``) and K4 on the device alone, taken only
      here because a profiler trace slows every later launch on the host; K6
      per block (F1+F2+F3 and B1+B2+B3 beside the module ``ConvBlock``
-     forward and backward) and K3 at B=2048: kernel, plain, library
-     yardstick, bound; K3 and its yardstick with and without the
-     preparation (cast, norms, diagonal);
+     forward and backward) and K3 at B=2048 and B=64 (Z bf16, Y f32):
+     kernel, plain, library yardstick, bound, each by CUDA events and on the
+     device, the new body's preparation and products apart, the f32
+     CUDA-core body (the parent's route for these inputs) with and without
+     its preparation, and the yardstick with and without its own;
   12. the K7 tool path: ``speech_decoding_tpu_torch.tools.bench_cross_block_merge``
      (equivalence, then the split pair and the merged kernel timed), re-emitted
      as one ``tool`` line with K7's plain time and bound;
@@ -108,7 +115,8 @@ What it does, in order (one JSON object per line on stdout):
      64 held-out segments, ``scan_steps`` 8, checkpoints in a temporary
      directory, keep 2, best by testTop10acc): the learning gate of
      tests/test_learning_gate.py must clear, launches K1 2 a step + 1 an
-     eval, K2 15 a step, K3 1 an epoch; ``trainer_fused``: one epoch of 12
+     eval, K2 15 a step, K3 1 an epoch (on the ``wgmma`` body, one piece,
+     the depth split: asserted); ``trainer_fused``: one epoch of 12
      steps with ``tpu.fused_train_blocks=true`` on host batches (pinned
      copies): each K6 stage 5 a step; ``preemption``: a real SIGTERM from
      ``PreemptionGuard(inject_after_steps=2)`` stops an epoch after 16
@@ -524,20 +532,33 @@ def main() -> int:
         Y = torch.randn(b, d, generator=gdev, device=dev)
         return (2 / d ** 0.5 * Y + torch.randn(b, d, generator=gdev, device=dev)).to(bf16), Y
 
+    # the wgmma body at the eval's B=2048 and the Trainer's B=64 (split
+    # depth), Y f32 (three bf16 pieces) and bf16 (one), a ragged B on it, and
+    # D % 8 != 0 on the f32 CUDA-core body
     k3_err = 0
-    for b_, d in ((NE, F * T), (333, 1001)):
+    for b_, d, ydt, route, pieces in ((NE, F * T, f32, "wgmma", 3), (64, F * T, f32, "wgmma", 3),
+                                      (64, F * T, bf16, "wgmma", 1), (333, 1000, f32, "wgmma", 3),
+                                      (333, 1001, f32, "f32", None)):
         Z, Y = k3_inputs(b_, d)
-        got, want = retrieval_ranks(Z, Y), retrieval_ranks_plain(Z, Y)
+        Y = Y.to(ydt)
+        got = retrieval_ranks(Z, Y)
+        took = (retrieval_ranks.route, retrieval_ranks.pieces, retrieval_ranks.splits)
+        want = retrieval_ranks_plain(Z, Y)
         torch.cuda.synchronize()
         differ = set(torch.nonzero(got != want).flatten().tolist())
         ties = near_tie_rows(Z, Y)
         err = int((got - want).abs().max())
-        emit(check=f"K3 ranks B={b_} D={d} (Z bf16, Y f32)", rows_differing=sorted(differ),
-             near_tie_rows=sorted(ties), distinct_ranks=int(torch.unique(want).numel()), max_abs_err=err)
+        emit(check=f"K3 ranks B={b_} D={d} (Z bf16, Y {str(ydt)[6:]})", route=took[0], pieces=took[1],
+             depth_splits=took[2], rows_differing=sorted(differ), near_tie_rows=sorted(ties),
+             distinct_ranks=int(torch.unique(want).numel()), max_abs_err=err)
+        if took[:2] != (route, pieces):
+            raise AssertionError(f"K3 B={b_} D={d}: took {took[:2]}, expected {(route, pieces)}")
         if not differ <= ties:
             raise AssertionError(f"K3: rows {sorted(differ - ties)[:10]} differ from the plain ranks without a near-tie")
         if torch.unique(want).numel() < 10:
             raise AssertionError("K3 check inputs give too few distinct ranks")
+        if b_ == 64 and took[2] < 2:
+            raise AssertionError(f"K3 B=64 D={d}: the depth was not split ({took[2]})")
         k3_err = max(k3_err, err)
         del Z, Y
 
@@ -1019,9 +1040,12 @@ def main() -> int:
         emit(phase=phase, segments=NE, test_set_size="assumed (2048 segments)",
              chunk=chunk if chunked else NE, chunk_from="tpu.eval_chunk_size", forwards=forwards,
              conv_impl="pallas_taps" if more else "gemm_pdw", seconds_host_clock=eval_s,
-             launches=eval_paths[phase], **ev)
+             launches=eval_paths[phase], k3_route=retrieval_ranks.route, k3_pieces=retrieval_ranks.pieces,
+             k3_depth_splits=retrieval_ranks.splits, **ev)
         if not (np.isfinite(ev["loss"]) and 0 <= ev["top1"] <= ev["top10"] <= 1):
             raise AssertionError(f"{phase} metrics out of range: {ev}")
+        if (retrieval_ranks.route, retrieval_ranks.pieces) != ("wgmma", 3):  # bf16 embeddings, f32 targets
+            raise AssertionError(f"{phase}: K3 took {retrieval_ranks.route} with {retrieval_ranks.pieces} pieces")
         want = expect(subject_matmul=forwards, retrieval_ranks=1, **more)
         if eval_paths[phase] != want:
             raise AssertionError(f"{phase} launches: {eval_paths[phase]}, expected {want}")
@@ -1221,32 +1245,62 @@ def main() -> int:
     k6_by = bound_ms(k6["flops"], k6["bytes"], peaks, "bf16")[1]
     del ins, xm, gm
 
-    # kernel_ms and library_ms both include the preparation (Z's cast to
-    # f32, the norms, the diagonal); the *_alone times take it out of both
-    Z, Y = k3_inputs(NE, F * T)
+    # K3 at the eval's B=2048 and the Trainer's B=64, Z bf16, Y f32. kernel_ms
+    # and library_ms include their preparation (the new body's one-pass
+    # split, norms and diagonal; the library's cast to f32, norms and
+    # diagonal); prep_ms and products_ms split the new body, *_alone the
+    # library. f32_body_ms is the f32 CUDA-core body, the parent's route for
+    # these inputs, with its own preparation (and alone). bound_ms: the three
+    # bf16 products at the bf16 peak against y and z read once, ranks written
+    # once; f32_cuda_core_bound_ms the same products once at the f32 peak of
+    # the CUDA cores; prep_bytes_bound_ms the preparation's bytes (y and z
+    # read, three pieces written)
     eps = 1e-8
 
     def k3_library(prepared):
         y, z, ny, nz, diag = prepared
         return ((torch.matmul(y, z.T) / torch.clamp_min(ny[:, None] * nz[None, :], eps)) > diag[:, None]).sum(1)
 
-    k3_ms = time_ms(lambda: retrieval_ranks(Z, Y), reps=3, warmup=1)
-    k3_dev = device_ms(lambda: retrieval_ranks(Z, Y), reps=3)
-    k3_plain = time_ms(lambda: retrieval_ranks_plain(Z, Y), reps=3, warmup=1)
-    k3_lib = time_ms(lambda: k3_library(k3_module._prepare(Z, Y, eps)), reps=3, warmup=1)
-    prepared = k3_module._prepare(Z, Y, eps)
-    k3_prepare_ms = time_ms(lambda: k3_module._prepare(Z, Y, eps), reps=3, warmup=1)
-    k3_alone_ms = time_ms(lambda: k3_module._ranks_kernel(*prepared, eps), reps=3, warmup=1)
-    k3_lib_alone = time_ms(lambda: k3_library(prepared), reps=3, warmup=1)
-    k3_bound, k3_by = bound_ms(2 * NE * NE * F * T, nbytes(Z, Y) + NE * 4, peaks, "f32")
-    emit(timing="K3 retrieval_ranks", shape=[NE, F * T], dtype="Z bf16, Y f32 (cast to f32 inside)",
-         kernel_ms=k3_ms, device_ms=k3_dev or "not measured", plain_ms=k3_plain, library_ms=k3_lib,
-         library="torch.matmul(y, z.T) in f32 plus the compare-and-count, after the same preparation",
-         prepare_ms=k3_prepare_ms, kernel_alone_ms=k3_alone_ms, library_alone_ms=k3_lib_alone,
-         alone="on rows already cast to f32, with norms and diagonal: the O(B²·D) part only",
-         bound_ms=k3_bound, bound_by=k3_by, f32_peak_share=k3_bound / k3_ms,
-         launches_per_eval=eval_launches["retrieval_ranks"])
-    del Z, Y, prepared
+    k3 = {}
+    for b_, reps in ((NE, 3), (64, 20)):
+        Z, Y = k3_inputs(b_, F * T)
+        ms = time_ms(lambda: retrieval_ranks(Z, Y), reps=reps, warmup=1)
+        if retrieval_ranks.route != "wgmma":
+            raise AssertionError(f"K3 timing at B={b_} took {retrieval_ranks.route}")
+        splits = retrieval_ranks.splits
+        dev_ms = device_ms(lambda: retrieval_ranks(Z, Y), reps=3)
+        plain = time_ms(lambda: retrieval_ranks_plain(Z, Y), reps=3, warmup=1)
+        lib = time_ms(lambda: k3_library(k3_module._prepare(Z, Y, eps)), reps=3, warmup=1)
+        lib_dev = device_ms(lambda: k3_library(k3_module._prepare(Z, Y, eps)), reps=3)
+        prep_ms = time_ms(lambda: k3_module._prep(Z, Y, eps), reps=reps, warmup=1)
+        prep_dev = device_ms(lambda: k3_module._prep(Z, Y, eps), reps=3)
+        pieces, ny, nz, diag = k3_module._prep(Z, Y, eps)
+        prod_ms = time_ms(lambda: k3_module._products(pieces, Z, ny, nz, diag, eps), reps=reps, warmup=1)
+        prod_dev = device_ms(lambda: k3_module._products(pieces, Z, ny, nz, diag, eps), reps=3)
+        del pieces
+        prepared = k3_module._prepare(Z, Y, eps)
+        lib_alone = time_ms(lambda: k3_library(prepared), reps=3, warmup=1)
+        old_alone = time_ms(lambda: k3_module._ranks_kernel(*prepared, eps), reps=3, warmup=1)
+        del prepared
+        old = time_ms(lambda: k3_module._ranks_kernel(*k3_module._prepare(Z, Y, eps), eps), reps=3, warmup=1)
+        old_dev = device_ms(lambda: k3_module._ranks_kernel(*k3_module._prepare(Z, Y, eps), eps), reps=3)
+        moved = nbytes(Z, Y) + b_ * 4
+        bound, by = bound_ms(3 * 2 * b_ * b_ * F * T, moved, peaks, "bf16")
+        k3[b_] = dict(
+            shape=[b_, F * T], dtype="Z bf16, Y f32 (three bf16 pieces)", route="wgmma", depth_splits=splits,
+            kernel_ms=ms, device_ms=dev_ms or "not measured", plain_ms=plain, library_ms=lib,
+            library_device_ms=lib_dev or "not measured",
+            library="torch.matmul(y, z.T) in f32 plus the compare-and-count, after its preparation",
+            prep_ms=prep_ms, prep_device_ms=prep_dev or "not measured", products_ms=prod_ms,
+            products_device_ms=prod_dev or "not measured", library_alone_ms=lib_alone,
+            f32_body_ms=old, f32_body_device_ms=old_dev or "not measured", f32_body_alone_ms=old_alone,
+            bound_ms=bound, bound_by=by,
+            f32_cuda_core_bound_ms=bound_ms(2 * b_ * b_ * F * T, moved, peaks, "f32")[0],
+            prep_bytes_bound_ms=(nbytes(Z, Y) + 3 * b_ * F * T * 2) / peaks["bytes"] * 1e3,
+            pct_of_bound=100 * bound / ms, device_pct_of_bound=100 * bound / dev_ms if dev_ms else "not measured")
+        emit(timing=f"K3 retrieval_ranks B={b_}", **k3[b_],
+             launches_per_eval=eval_launches["retrieval_ranks"] if b_ == NE else "1 a Trainer eval")
+        del Z, Y
 
     # -- 12. the K7 tool path: the port's bench_cross_block_merge --------------------
     # its equivalence check and its timings (split F3 + F1 against the merged
@@ -1299,7 +1353,12 @@ def main() -> int:
              epoch_seconds_host_clock=summary["epoch_seconds"], last_epoch_seconds=trainer.last_epoch_seconds,
              train_loss=[h["train_loss"] for h in hist], testTop10acc=[h["testTop10acc"] for h in hist],
              chance_top10=summary["chance_top10"], gate=summary["gate"], wall_s=summary["wall_s"],
-             checkpoints={"latest": ckpts.latest_epoch(), "best": ckpts.best_epoch()}, launches=trainer_launches)
+             checkpoints={"latest": ckpts.latest_epoch(), "best": ckpts.best_epoch()}, launches=trainer_launches,
+             k3_route=retrieval_ranks.route, k3_pieces=retrieval_ranks.pieces, k3_depth_splits=retrieval_ranks.splits)
+        # the evals of 64 held-out segments: bf16 embeddings against the world's bf16 targets
+        if (retrieval_ranks.route, retrieval_ranks.pieces) != ("wgmma", 1) or retrieval_ranks.splits < 2:
+            raise AssertionError(f"trainer: K3 took {retrieval_ranks.route}, {retrieval_ranks.pieces} pieces, "
+                                 f"{retrieval_ranks.splits} depth slices")
         want = expect(subject_matmul=2 * steps + SR_EPOCHS, tap_conv_dw=15 * steps, retrieval_ranks=SR_EPOCHS)
         if trainer_launches != want:
             raise AssertionError(f"trainer launches: {trainer_launches}, expected {want}")
@@ -1464,9 +1523,14 @@ def main() -> int:
          "replaces": "speech_decoding_tpu/ops/pallas/retrieval.py:90",
          "launches": launches_of("retrieval_ranks"),
          "launches_by_path": {k: p["retrieval_ranks"] for k, p in paths.items()},
+         "header": "speech_decoding_tpu_torch/csrc/hopper.cuh", "body": "wgmma",
          "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": k3_lib, "device_ms": k3_dev or "not measured"},
+         "ms": k3[NE]["kernel_ms"], "plain_ms": k3[NE]["plain_ms"], "bound_ms": k3[NE]["bound_ms"],
+         "bound_by": k3[NE]["bound_by"], "library_ms": k3[NE]["library_ms"], "device_ms": k3[NE]["device_ms"],
+         "f32_cuda_core_bound_ms": k3[NE]["f32_cuda_core_bound_ms"], "f32_body_ms": k3[NE]["f32_body_ms"],
+         "timed": f"B={NE}, D={F * T}, Z bf16, Y f32",
+         "b64": {k: k3[64][k] for k in ("kernel_ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by", "f32_body_ms", "depth_splits")}},
         {"name": "tap_conv", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/tap_conv.cu",
          "header": "speech_decoding_tpu_torch/csrc/hopper.cuh (bf16), speech_decoding_tpu_torch/csrc/tap3.cuh (f32)",

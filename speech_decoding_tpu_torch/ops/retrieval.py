@@ -4,22 +4,89 @@ Port of ``speech_decoding_tpu/ops/pallas/retrieval.py`` (K3). For each audio
 row i, the rank of the diagonal is the number of brain rows j ≠ i with
 cos(Y_i, Z_j) > cos(Y_i, Z_i) — the reference's transposed orientation
 [ref: speech_decoding/models.py:226-243]; top-k accuracy is mean(rank < k).
-The norms and the diagonal are O(B·D) and are computed here with stock ops,
-as the JAX wrapper does; the CUDA kernel (``csrc/retrieval_ranks.cu``) does
-the O(B²·D) part in f32 and writes only the (B,) int32 ranks.
+The CUDA kernels (``csrc/retrieval_ranks.cu``) write only the (B,) int32
+ranks.
 
-``retrieval_ranks`` launches the kernel for CUDA tensors and uses
+Routes on the card (``retrieval_ranks.route`` names the last one taken,
+``retrieval_ranks.pieces`` its bf16 pieces of y and ``retrieval_ranks.splits``
+its depth slices):
+  * ``"wgmma"``: Z bf16 and Y f32 or bf16 inside ``_fast_path`` (the eval's
+    embeddings in the compute dtype against f32 or bf16 targets). One pass
+    (``retrieval_prep``) writes f32 Y as three bf16 pieces that add back to
+    it exactly (``split_bf16_pieces``; a bf16 Y is its own one piece) and
+    the norms and the diagonal; then bf16 tensor-core products of every
+    piece with Z into one f32 accumulator: the f32 dot products up to the
+    order of their sums (plain version: ``retrieval_ranks_pieces_plain``).
+    With fewer tiles than SMs (the Trainer's eval of 64 segments) the depth
+    is split across blocks and the slices' partial tiles added in a fixed
+    order. The pieces scratch (P·B·D bf16, 4.5 GB at B = 2048, D = 368,640)
+    is dropped when the call returns.
+  * ``"f32"``: every other input (f32 Z, D % 8 ≠ 0, a misaligned base): the
+    rows cast to f32, norms and diagonal from stock ops as the JAX wrapper
+    computes them, and the CUDA-core kernel in f32.
+
+``retrieval_ranks`` launches a kernel for CUDA tensors and uses
 ``retrieval_ranks_plain`` for CPU tensors; it never falls back on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence, Tuple
 
 import torch
 
 from speech_decoding_tpu_torch.ops import _build
+from speech_decoding_tpu_torch.ops.subject_conv import _on, _stream
+from speech_decoding_tpu_torch.ops.tap_conv import _sms
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# argument types of each C entry of csrc/retrieval_ranks.cu, set once when the library loads
+_SIGNATURES = {
+    "retrieval_ranks_f32": [_P] * 6 + [_I, _L, _F, _P],
+    "retrieval_prep": [_P] * 7 + [_I, _L, _I, _I, _F, _P],
+    "retrieval_ranks_wgmma": [_P] * 7 + [_I, _L, _I, _I, _F, _P],
+}
+_entries = {}
+PREP_SLICE = 8192  # depth a preparation block (k3::PREP_SLICE)
+TILE = (64, 256)  # (i, j) a block of the wgmma body (k3::TM, k3::TN)
+CHUNK = 64  # depth a stage of the wgmma body (k3::BK)
+
+
+def _entry(name: str):
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(_build.load("retrieval_ranks"), name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def _fast_path(B: int, D: int, z_dtype: torch.dtype, y_dtype: torch.dtype, ptrs: Sequence[int]) -> bool:
+    """Whether ranks of Z (B, D) against Y (B, D) take the ``wgmma`` body:
+    Z bf16 (exact as one bf16 piece), Y f32 or bf16, rows of whole 16-byte
+    pieces for the tensor maps (D % 8 == 0), every base in ``ptrs`` 16-byte
+    aligned, and something to rank (B, D > 0)."""
+    return (B > 0 and D > 0 and D % 8 == 0 and z_dtype == torch.bfloat16
+            and y_dtype in (torch.float32, torch.bfloat16) and all(p % 16 == 0 for p in ptrs))
+
+
+def split_bf16_pieces(y: torch.Tensor) -> torch.Tensor:
+    """y (B, D) as bf16 pieces (P, B, D) that add back to it: a bf16 y is
+    its own one piece; f32 y gives y1 = bf16(y), y2 = bf16(y - y1), y3 =
+    bf16(y - y1 - y2), each subtraction exact in f32 (for normal numbers
+    the three pieces hold all 24 significant bits). The plain version of
+    the preparation kernel's split."""
+    if y.dtype == torch.bfloat16:
+        return y[None]
+    if y.dtype != torch.float32:
+        raise ValueError(f"split_bf16_pieces takes f32 or bf16, got {y.dtype}")
+    y1 = y.bfloat16()
+    r1 = y - y1.float()
+    y2 = r1.bfloat16()
+    return torch.stack([y1, y2, (r1 - y2.float()).bfloat16()])
 
 
 def _prepare(Z: torch.Tensor, Y: torch.Tensor, eps: float):
@@ -33,6 +100,13 @@ def _prepare(Z: torch.Tensor, Y: torch.Tensor, eps: float):
     return y, z, ny, nz, diag
 
 
+def _count(dots: torch.Tensor, ny, nz, diag, eps: float) -> torch.Tensor:
+    """The epilogue: per row, the off-diagonal similarities above the diagonal."""
+    greater = dots / torch.clamp_min(ny[:, None] * nz[None, :], eps) > diag[:, None]
+    greater.fill_diagonal_(False)
+    return greater.sum(dim=1).to(torch.int32)
+
+
 def _similarity(Z: torch.Tensor, Y: torch.Tensor, eps: float):
     """The whole (B, B) f32 similarity matrix and its precomputed diagonal."""
     y, z, ny, nz, diag = _prepare(Z, Y, eps)
@@ -42,10 +116,22 @@ def _similarity(Z: torch.Tensor, Y: torch.Tensor, eps: float):
 def retrieval_ranks_plain(Z: torch.Tensor, Y: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Reference: the whole similarity matrix, compared with its precomputed
     diagonal; j = i never counts. Z, Y (B, ...) -> (B,) int32."""
-    sim, diag = _similarity(Z, Y, eps)
-    greater = sim > diag[:, None]
-    greater.fill_diagonal_(False)
-    return greater.sum(dim=1).to(torch.int32)
+    y, z, ny, nz, diag = _prepare(Z, Y, eps)
+    return _count(y @ z.T, ny, nz, diag, eps)
+
+
+def retrieval_ranks_pieces_plain(Z: torch.Tensor, Y: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """The ``wgmma`` body's arithmetic in plain PyTorch: the dot products as
+    Σ_p y_p @ z.T over ``split_bf16_pieces`` of Y (f32 or bf16), each in
+    f32, then ``retrieval_ranks_plain``'s epilogue on the same norms and
+    diagonal. Z is bf16 on that route (it is cast to f32 here)."""
+    B = Z.shape[0]
+    _, z, ny, nz, diag = _prepare(Z, Y, eps)
+    dots = None
+    for piece in split_bf16_pieces(Y.reshape(B, -1)):
+        part = piece.float() @ z.T
+        dots = part if dots is None else dots + part
+    return _count(dots, ny, nz, diag, eps)
 
 
 def near_tie_rows(Z: torch.Tensor, Y: torch.Tensor, tol: float = 1e-6, eps: float = 1e-8) -> set:
@@ -58,34 +144,81 @@ def near_tie_rows(Z: torch.Tensor, Y: torch.Tensor, tol: float = 1e-6, eps: floa
     return set(torch.nonzero(close.any(dim=1)).flatten().tolist())
 
 
-def _launch(Z: torch.Tensor, Y: torch.Tensor, eps: float) -> torch.Tensor:
-    if not (Y.is_cuda and Y.device == Z.device):
-        raise ValueError("retrieval_ranks: Z and Y must lie on one CUDA device")
-    return _ranks_kernel(*_prepare(Z, Y, eps), eps)
+def _splits(B: int, D: int, sms: int) -> int:
+    """Depth slices of the ``wgmma`` body: as many as keep slices × tiles
+    within one block a SM (so the workspace is at most ``sms`` partial
+    tiles), none empty; 1 when the tiles alone fill the card."""
+    tiles = math.ceil(B / TILE[0]) * math.ceil(B / TILE[1])
+    chunks = math.ceil(D / CHUNK)
+    per = math.ceil(chunks / max(1, min(chunks, sms // tiles)))
+    return math.ceil(chunks / per)
+
+
+def _prep(z: torch.Tensor, y: torch.Tensor, eps: float):
+    """The preparation kernel on flattened rows: (pieces (P, B, D) bf16, ny,
+    nz, diag). For bf16 y the pieces are y itself, not copied."""
+    B, D = y.shape
+    f32 = y.dtype == torch.float32
+    pieces = torch.empty((3, B, D), dtype=torch.bfloat16, device=y.device) if f32 else y[None]
+    nsl = math.ceil(D / PREP_SLICE)
+    part = torch.empty(B * nsl * 3, dtype=torch.float32, device=y.device)
+    ny, nz, diag = torch.empty((3, B), dtype=torch.float32, device=y.device)
+    err = _entry("retrieval_prep")(y.data_ptr(), z.data_ptr(), pieces.data_ptr() if f32 else None, part.data_ptr(),
+                                   ny.data_ptr(), nz.data_ptr(), diag.data_ptr(), B, D, int(f32), nsl, eps,
+                                   _stream(y.get_device()))
+    _build.check(err, "retrieval_prep")
+    return pieces, ny, nz, diag
+
+
+def _products(pieces: torch.Tensor, z: torch.Tensor, ny, nz, diag, eps: float) -> torch.Tensor:
+    """The ``wgmma`` body's products and counts on ``_prep``'s outputs."""
+    P, B, D = pieces.shape
+    splits = _splits(B, D, _sms(z.device))
+    tiles = math.ceil(B / TILE[0]) * math.ceil(B / TILE[1])
+    ws = torch.empty(splits * tiles * TILE[0] * TILE[1] if splits > 1 else 0, dtype=torch.float32,
+                     device=z.device)
+    ranks = torch.zeros(B, dtype=torch.int32, device=z.device)
+    err = _entry("retrieval_ranks_wgmma")(pieces.data_ptr(), z.data_ptr(), ny.data_ptr(), nz.data_ptr(),
+                                          diag.data_ptr(), ranks.data_ptr(), ws.data_ptr() if splits > 1 else None,
+                                          B, D, P, splits, eps, _stream(z.get_device()))
+    _build.check(err, "retrieval_ranks_wgmma")
+    retrieval_ranks.launches += 1
+    retrieval_ranks.route, retrieval_ranks.pieces, retrieval_ranks.splits = "wgmma", P, splits
+    return ranks
 
 
 def _ranks_kernel(y, z, ny, nz, diag, eps: float) -> torch.Tensor:
-    """The kernel alone, on ``_prepare``'s f32 rows, norms and diagonal."""
+    """The f32 CUDA-core kernel alone, on ``_prepare``'s f32 rows, norms and diagonal."""
     B, D = y.shape
     ranks = torch.zeros(B, dtype=torch.int32, device=y.device)
     if B == 0:
         return ranks
-    fn = _build.load("retrieval_ranks").retrieval_ranks_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(y.data_ptr(), z.data_ptr(), ny.data_ptr(), nz.data_ptr(), diag.data_ptr(), ranks.data_ptr(),
-                 B, D, eps, stream)
+    err = _entry("retrieval_ranks_f32")(y.data_ptr(), z.data_ptr(), ny.data_ptr(), nz.data_ptr(), diag.data_ptr(),
+                                        ranks.data_ptr(), B, D, eps, _stream(y.get_device()))
     _build.check(err, "retrieval_ranks")
     retrieval_ranks.launches += 1
+    retrieval_ranks.route, retrieval_ranks.pieces, retrieval_ranks.splits = "f32", None, 1
+    return ranks
+
+
+def _launch(Z: torch.Tensor, Y: torch.Tensor, eps: float) -> torch.Tensor:
+    if not (Y.is_cuda and Y.device == Z.device):
+        raise ValueError("retrieval_ranks: Z and Y must lie on one CUDA device")
+    B = Z.shape[0]
+    z, y = Z.reshape(B, -1).contiguous(), Y.reshape(B, -1).contiguous()
+    with _on(Z.get_device()):
+        if _fast_path(B, z.shape[1], z.dtype, y.dtype, (z.data_ptr(), y.data_ptr())):
+            pieces, ny, nz, diag = _prep(z, y, eps)
+            ranks = _products(pieces, z, ny, nz, diag, eps)
+        else:
+            ranks = _ranks_kernel(*_prepare(Z, Y, eps), eps)
     return ranks
 
 
 def retrieval_ranks(Z: torch.Tensor, Y: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Per-row rank of the diagonal in the cosine similarity of audio rows Y
-    against brain rows Z (both (B, ...), any float dtype, cast to f32).
-    Returns (B,) int32."""
+    against brain rows Z (both (B, ...), any float dtype). Returns (B,)
+    int32."""
     if Z.shape[0] != Y.shape[0] or Z.numel() != Y.numel():
         raise ValueError(f"retrieval_ranks needs Z and Y of one row count and row size, got "
                          f"{tuple(Z.shape)}, {tuple(Y.shape)}")
@@ -96,7 +229,10 @@ def retrieval_ranks(Z: torch.Tensor, Y: torch.Tensor, eps: float = 1e-8) -> torc
     return retrieval_ranks_plain(Z, Y, eps)
 
 
-retrieval_ranks.launches = 0  # kernel launches (CUDA tensors only)
+retrieval_ranks.launches = 0  # calls that launched a body: one a call on the card
+retrieval_ranks.route = None  # "wgmma" or "f32": the body of the last launch
+retrieval_ranks.pieces = None  # bf16 pieces of y in the last wgmma launch (3 for f32 Y, 1 for bf16)
+retrieval_ranks.splits = 1  # depth slices of the last launch
 
 
 def retrieval_metrics_kernel(Z: torch.Tensor, Y: torch.Tensor,

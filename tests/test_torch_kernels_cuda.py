@@ -413,6 +413,73 @@ def test_retrieval_ranks_kernel(dev, B, D):
         assert len(torch.unique(want)) > 10  # ranks spread
 
 
+
+def _k3_inputs(dev, B, D, ydtype, seed):
+    """Z bf16 (the eval's embeddings), Y in ``ydtype``; Z = 2/sqrt(D)·Y +
+    noise, so ranks spread."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Y = torch.randn(B, D, device=dev, generator=g)
+    Z = 2 / D ** 0.5 * Y + torch.randn(B, D, device=dev, generator=g)
+    return Z.bfloat16(), Y.to(ydtype)
+
+
+def _k3_check(Z, Y, route, pieces=None):
+    """One launch on ``route`` (with ``pieces``), two runs bitwise equal,
+    ranks equal to the plain version's outside near ties; returns the
+    plain ranks and the launch's depth slices."""
+    before = retrieval_ranks.launches
+    got = retrieval_ranks(Z, Y)
+    assert retrieval_ranks.launches == before + 1 and got.dtype == torch.int32
+    assert retrieval_ranks.route == route and retrieval_ranks.pieces == pieces
+    splits = retrieval_ranks.splits
+    again = retrieval_ranks(Z, Y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = retrieval_ranks_plain(Z, Y)
+    differ = set(torch.nonzero(got != want).flatten().tolist())
+    assert differ <= near_tie_rows(Z, Y), sorted(differ)[:10]
+    return want, splits
+
+
+@pytest.mark.parametrize("ydtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,D", [(64, 36864), (333, 1000), (2048, 4096), (130, 8)])
+def test_retrieval_ranks_wgmma_route(dev, B, D, ydtype):
+    """Z bf16 with Y f32 (three bf16 pieces) or bf16 (one): the wgmma body;
+    ragged B (333, 130) and a depth under one 64-deep stage (8)."""
+    Z, Y = _k3_inputs(dev, B, D, ydtype, B + D)
+    want, _ = _k3_check(Z, Y, "wgmma", 3 if ydtype == torch.float32 else 1)
+    if B > 100 and D > 8:
+        assert len(torch.unique(want)) > 10  # ranks spread
+
+
+@pytest.mark.parametrize("B", [64, 130])
+def test_retrieval_ranks_split_depth(dev, B):
+    """Fewer tiles than SMs: the depth is split across blocks (one 64 x 256
+    tile at B=64, three at B=130) and the slices' partial tiles are added in
+    a fixed order; at most one block a SM."""
+    D = 36864
+    Z, Y = _k3_inputs(dev, B, D, torch.float32, B)
+    _, splits = _k3_check(Z, Y, "wgmma", 3)
+    tiles = -(-B // 64) * -(-B // 256)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 1 < splits and splits * tiles <= sms
+
+
+@pytest.mark.parametrize("case", ["z_f32", "d1001", "z_misaligned", "y_misaligned"])
+def test_retrieval_ranks_f32_route(dev, case):
+    """Outside the wgmma body's domain the f32 CUDA-core body runs: f32 Z,
+    D % 8 != 0, a base that is not 16-byte aligned."""
+    B, D = 333, 1001 if case == "d1001" else 1000
+    Z, Y = _k3_inputs(dev, B, D, torch.float32, 7)
+    if case == "z_f32":
+        Z = Z.float()
+    elif case.endswith("misaligned"):
+        t = Z if case == "z_misaligned" else Y
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        t = flat[1:].view(t.shape).copy_(t)
+        Z, Y = (t, Y) if case == "z_misaligned" else (Z, t)
+    _k3_check(Z, Y, "f32")
+
 def test_train_step_card_matches_cpu(dev):
     """Three train steps at a small width in f32 on the card and on the CPU,
     the same weights, batches and masks: loss and temperature at rtol 1e-4,
