@@ -48,14 +48,18 @@ What it does, in order (one JSON object per line on stdout):
   4b. each of K6's six stages (``ops.conv_block_train`` F1, F2, F3, B1, B2,
      B3) against its plain version: blocks k=0..4 at (64, 360, 320) in bf16,
      f32 at B=4, ragged B=3, T=37 where d=16 reaches both edges (k=2, 4);
-     outputs, the (2, C) sums, dW and db; two runs must give the same bits;
-     then one block's ``conv_block_train`` forward and backward against the
-     module ``ConvBlock``'s train forward with autograd, in f32;
+     outputs, the (2, C) sums, dW and db; every bf16 stage must take the
+     ``wgmma`` route (``conv_block_train.route``), every f32 one ``tap3``;
+     two runs must give the same bits; then one block's
+     ``conv_block_train`` forward and backward against the module
+     ``ConvBlock``'s train forward with autograd, in f32;
   4c. K7 ``f31`` (F3 of block k merged with F1 of block k+1) against
      ``f31_plain``: bf16 at (64, 360, 320) and f32 at B=4 for every
      boundary (k_next 1..4), ragged B=3, T=37 at d0n=16, f32 and bf16; at
-     every one of those shapes against K6's own F3 then F1 (out and y0n
-     bitwise, s0n rtol 1e-6); two runs must give the same bits;
+     every one of those shapes against K6's tap3 pair ``f3_tile`` then
+     ``f1_tile`` (out and y0n bitwise, s0n rtol 1e-6) and against K6's own
+     F3 then F1 (in bf16 the ``wgmma`` route: activations atol 1e-2 rtol
+     1e-2, s0n 1e-3 of its largest entry); two runs must give the same bits;
   5. the whole encode at full width (S=27, C=208, T=360, D1=270, D2=320,
      F=1024, K=32, random BatchNorm running statistics): the fused serving
      path (K1 + five K4 launches) against the module path, f32 and bf16;
@@ -100,15 +104,18 @@ What it does, in order (one JSON object per line on stdout):
      K1's forward (beside the wmma body, the flagship's route before the
      wgmma body, and ``torch.bmm``) and K4 on the device alone, taken only
      here because a profiler trace slows every later launch on the host; K6
-     per block (F1+F2+F3 and B1+B2+B3 beside the module ``ConvBlock``
-     forward and backward) and K3 at B=2048 and B=64 (Z bf16, Y f32):
+     per block (each stage by events and on the device, F1+F2+F3 and
+     B1+B2+B3 beside the module ``ConvBlock`` forward and backward, and the
+     tap3 route, the parent's body, on the same inputs; at k=0 the
+     272-channel copy of x) and K3 at B=2048 and B=64 (Z bf16, Y f32):
      kernel, plain, library yardstick, bound, each by CUDA events and on the
      device, the new body's preparation and products apart, the f32
      CUDA-core body (the parent's route for these inputs) with and without
      its preparation, and the yardstick with and without its own;
   12. the K7 tool path: ``speech_decoding_tpu_torch.tools.bench_cross_block_merge``
-     (equivalence, then the split pair and the merged kernel timed), re-emitted
-     as one ``tool`` line with K7's plain time and bound;
+     (equivalence, then the tap3 pair, the wgmma pair and the merged kernel
+     timed), re-emitted as one ``tool`` line with K7's plain time, bound and
+     device time beside both pairs';
   13. the training loop, each path with every counter set to 0 just before
      and read just after: ``trainer``, the port's ``tools/scale_run`` at the
      flagship (4 epochs of 100 updates over a device-resident pool of 512 +
@@ -310,7 +317,7 @@ def main() -> int:
         from speech_decoding_tpu_torch.ops import subject_conv as sc
         from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul, subject_matmul_plain
         from speech_decoding_tpu_torch.ops.tap_conv import (
-            flip_taps, tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain, tap_conv_transposed,
+            flip_taps, pad_channels, tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain, tap_conv_transposed,
         )
         from speech_decoding_tpu_torch.serving import DecoderServer, decode_request
         from speech_decoding_tpu_torch.tools import bench_cross_block_merge as merge_tool
@@ -341,7 +348,8 @@ def main() -> int:
     # every path's run sets all launch counters to 0 just before and reads them all just after
     counted = {"subject_matmul": subject_matmul, "conv_block_fused": conv_block_fused,
                "tap_conv_dw": tap_conv_dw, "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv,
-               **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()}, "conv_block_train.F31": cbt.f31}
+               **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()},
+               **{f"conv_block_train.{name}_tile": fn for name, fn in cbt.TILE.items()}, "conv_block_train.F31": cbt.f31}
 
     def reset_counts():
         for fn in counted.values():
@@ -612,15 +620,19 @@ def main() -> int:
         rel = 1e-3 if dtype == bf16 else 1e-4
         cin = D1 if k == 0 else D2
         ins = cbt.stage_inputs(b_, t_, cin, D2, k, dtype, dev, gk6)
+        want_route = "wgmma" if dtype == bf16 else "tap3"
         for st, fn in cbt.STAGES.items():
-            got, want = fn(*ins[st]), cbt.PLAIN[st](*ins[st])
+            got = fn(*ins[st])
+            if cbt.conv_block_train.route != want_route:
+                raise AssertionError(f"K6 {st} k={k} {tag} took {cbt.conv_block_train.route}, not {want_route}")
+            want = cbt.PLAIN[st](*ins[st])
             got, want = (v if isinstance(v, tuple) else (v,) for v in (got, want))
             errs = [compare(f"K6 {st} k={k} {tag} output {i}", a, b,
                             *((1e-2, 1e-2) if a.dtype == bf16 else (rel * float(b.abs().max()), rel)), show=False)
                     for i, (a, b) in enumerate(zip(got, want))]
             name = f"K6 {st} k={k} {tag} {(b_, t_, cin, D2)}"
-            emit(check=name, outputs=len(got), max_abs_err=max(errs), bf16_outputs="atol 1e-2 rtol 1e-2",
-                 f32_outputs=f"{rel} of the largest entry, rtol {rel}")
+            emit(check=name, route=want_route, outputs=len(got), max_abs_err=max(errs),
+                 bf16_outputs="atol 1e-2 rtol 1e-2", f32_outputs=f"{rel} of the largest entry, rtol {rel}")
             k6_err[name] = max(errs)
 
     for k in range(5):
@@ -640,11 +652,15 @@ def main() -> int:
              bitwise_equal=True)
     del ins
 
-    # -- 4c. K7 vs plain and vs the split pair ----------------------------------
+    # -- 4c. K7 vs plain and vs the split pairs ----------------------------------
     # f31 against f31_plain (activations as K6's: a flipped bf16 rounding, 1e-2
     # + 1e-2 relative; s0n at 1e-3 (bf16) or 1e-4 (f32) of its largest entry),
-    # and against K6's own F3 then F1 on the same inputs: out and y0n bitwise
-    # (the same chunk walk and tap order), s0n within rtol 1e-6
+    # against K6's tap3 pair f3_tile then f1_tile on the same inputs: out and
+    # y0n bitwise (the same chunk walk and tap order), s0n within rtol 1e-6;
+    # and each half against K6's stage (the wgmma route in bf16) on the same
+    # inputs at the tolerances of the plain version: out against F3, y0n and
+    # s0n against F1 on K7's own out (chained, F1 on F3's out would carry
+    # each flipped rounding of out into y0n through the skip)
     k7_err = {}
 
     def k7_check(tag, b_, t_, k_next, dtype):
@@ -655,19 +671,26 @@ def main() -> int:
         errs = [compare(f"K7 {tag} output {i}", a, b, *((1e-2, 1e-2) if a.dtype == bf16 else
                                                         (rel * float(b.abs().max()), rel)), show=False)
                 for i, (a, b) in enumerate(zip(got, want))]
-        out_s = cbt.f3(*args7[:5])
-        y0n_s, s0n_s = cbt.f1(out_s, args7[5], args7[6], k_next)
+        out_s = cbt.f3_tile(*args7[:5])
+        y0n_s, s0n_s = cbt.f1_tile(out_s, args7[5], args7[6], k_next)
         torch.cuda.synchronize()
         if not (torch.equal(got[0], out_s) and torch.equal(got[1], y0n_s)):
-            raise AssertionError(f"K7 {tag} k_next={k_next}: out or y0n differs from the split F3 + F1")
+            raise AssertionError(f"K7 {tag} k_next={k_next}: out or y0n differs from the tap3 pair F3 + F1")
         if not torch.allclose(got[2], s0n_s, rtol=1e-6, atol=0.0):
-            raise AssertionError(f"K7 {tag} k_next={k_next}: s0n differs from the split pair's beyond rtol 1e-6")
+            raise AssertionError(f"K7 {tag} k_next={k_next}: s0n differs from the tap3 pair's beyond rtol 1e-6")
+        pair = (cbt.f3(*args7[:5]), *cbt.f1(got[0], args7[5], args7[6], k_next))
+        pair_route = cbt.conv_block_train.route
+        pair_err = max(compare(f"K7 {tag} vs the {pair_route} pair, output {i}", a, b,
+                               *((1e-2, 1e-2) if a.dtype == bf16 else (rel * float(b.abs().max()), rel)), show=False)
+                       for i, (a, b) in enumerate(zip(got, pair)))
         name = f"K7 f31 k_next={k_next} {tag} {(b_, t_, D2)}"
         emit(check=name, d0n=dilations(k_next)[0], max_abs_err=max(errs),
              max_abs_ref={n: float(b.abs().max()) for n, b in zip(("out", "y0n", "s0n"), want)},
              vs_plain_bf16="atol 1e-2 rtol 1e-2",
-             vs_plain_f32=f"{rel} of the largest entry, rtol {rel}", vs_split_pair="out, y0n bitwise; s0n rtol 1e-6",
-             s0n_bitwise_equal_to_split=bool(torch.equal(got[2], s0n_s)))
+             vs_plain_f32=f"{rel} of the largest entry, rtol {rel}",
+             vs_tap3_pair="out, y0n bitwise; s0n rtol 1e-6",
+             s0n_bitwise_equal_to_tap3_pair=bool(torch.equal(got[2], s0n_s)),
+             pair_route=pair_route, vs_pair_max_abs_err=pair_err, vs_pair="as vs plain")
         k7_err[name] = max(errs)
         return args7
 
@@ -1196,24 +1219,50 @@ def main() -> int:
          tflop=k5["flops"] / 1e12, per_conv=k5_per_conv, launches_per_train_step=taps_per_step["tap_conv"])
     del x, w, wf, xc, wc, want, lib_y
 
-    # K6 per block: F1+F2+F3 and B1+B2+B3 (each stage with its reductions,
-    # the backward stages with their K2 launch), the plain stages, and the
-    # module ConvBlock's train forward and forward+backward on the same shapes
+    # K6 per block, bf16 on the wgmma route: each stage (with its
+    # reductions, weight packs and BN·GELU pass; the backward stages with
+    # their K2 launch) by CUDA events and on the device, the block's six
+    # stages on the device, and all of it again on the tap3 route (the
+    # parent's body, TILE) on the same inputs; the plain stages; the module
+    # ConvBlock's train forward and forward+backward on the same shapes. At
+    # k=0 the stages reuse x's 272-channel copy, as B3 reuses F1's within a
+    # step, so the copy is timed apart and added to the block once (the tap3
+    # route's B3 makes its own inside its K2 launch, timed with it)
     def conv_flops(ci, co, d):
         return 2 * ci * co * B * (T + 2 * max(T - d, 0))
 
     def tensors(v):
         return [a for a in (v if isinstance(v, tuple) else (v,)) if torch.is_tensor(a)]
 
+    def none_sum(vals):
+        return sum(vals) if all(v is not None for v in vals) else None
+
     k6 = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0,
-          "module_ms": 0.0}
+          "module_ms": 0.0, "tap3_ms": 0.0, "tap3_device_ms": 0.0}
     fwd, bwd = ("F1", "F2", "F3"), ("B1", "B2", "B3")
     for k in range(5):
         cin = D1 if k == 0 else D2
         d0, d1 = dilations(k)
         ins = cbt.stage_inputs(B, T, cin, D2, k, bf16, dev, gk6)
-        ms = {st: time_ms(lambda st=st: cbt.STAGES[st](*ins[st]), reps=10) for st in cbt.STAGES}
-        dms = device_ms(lambda: [cbt.STAGES[st](*ins[st]) for st in cbt.STAGES])  # the block's six stages
+        for st in cbt.STAGES:
+            cbt.STAGES[st](*ins[st])
+            new_route = cbt.conv_block_train.route
+            cbt.TILE[st](*ins[st])
+            if (new_route, cbt.conv_block_train.route) != ("wgmma", "tap3"):
+                raise AssertionError(f"K6 timing k={k} {st}: routes {new_route}, {cbt.conv_block_train.route}")
+        per_route = {}
+        for route, stages in (("wgmma", cbt.STAGES), ("tap3", cbt.TILE)):
+            ms = {st: time_ms(lambda st=st: stages[st](*ins[st]), reps=10) for st in stages}
+            st_dev = {st: device_ms(lambda st=st: stages[st](*ins[st]), reps=5) for st in stages}
+            dms = device_ms(lambda: [stages[st](*ins[st]) for st in stages])  # the block's six stages
+            per_route[route] = {"forward_ms": sum(ms[s] for s in fwd), "backward_ms": sum(ms[s] for s in bwd),
+                                "ms": sum(ms.values()), "per_stage_ms": ms, "per_stage_device_ms": st_dev,
+                                "device_ms": dms}
+        pad = {}
+        if cin % 8:
+            xk = ins["F1"][0]
+            pad = {"x_pad_ms": time_ms(lambda: pad_channels(xk), reps=10),
+                   "x_pad_device_ms": device_ms(lambda: pad_channels(xk), reps=5)}
         plain = {st: time_ms(lambda st=st: cbt.PLAIN[st](*ins[st]), reps=3) for st in cbt.STAGES}
         flops = {"F1": conv_flops(cin, D2, d0), "F2": conv_flops(D2, D2, d1), "F3": conv_flops(D2, 2 * D2, 2),
                  "B1": 3 * conv_flops(D2, 2 * D2, 2), "B2": 2 * conv_flops(D2, D2, d1),
@@ -1225,9 +1274,21 @@ def main() -> int:
         gm = torch.randn(B, T, D2, generator=gdev, device=dev).to(bf16)
         mod_f = time_ms(lambda: blk(xm, train=True), reps=10)
         mod_fb = time_ms(lambda: blk(xm, train=True).backward(gm), reps=10)
-        emit(timing=f"K6 conv_block_train k={k}", shape=[B, T, cin, D2], dtype="bf16",
-             forward_ms=sum(ms[s] for s in fwd), backward_ms=sum(ms[s] for s in bwd), per_stage_ms=ms,
-             device_ms=dms or "not measured",
+        new, old = per_route["wgmma"], per_route["tap3"]
+        blk_ms = new["ms"] + pad.get("x_pad_ms", 0.0)
+        blk_dev = none_sum([new["device_ms"], pad.get("x_pad_device_ms", 0.0)])
+        bound_blk = sum(b[0] for b in bounds.values())
+        emit(timing=f"K6 conv_block_train k={k}", shape=[B, T, cin, D2], dtype="bf16", route="wgmma",
+             forward_ms=new["forward_ms"], backward_ms=new["backward_ms"], per_stage_ms=new["per_stage_ms"],
+             per_stage_device_ms={s: v or "not measured" for s, v in new["per_stage_device_ms"].items()},
+             device_ms=new["device_ms"] or "not measured", **pad,
+             block_ms=blk_ms, block_device_ms=blk_dev or "not measured",
+             block_device_pct_of_bound=100 * bound_blk / blk_dev if blk_dev else "not measured",
+             tap3_route={**{key: old[key] for key in ("forward_ms", "backward_ms", "per_stage_ms")},
+                         "per_stage_device_ms": {s: v or "not measured" for s, v in old["per_stage_device_ms"].items()},
+                         "device_ms": old["device_ms"] or "not measured",
+                         "what": "the parent's body, cbt.TILE, on the same inputs in this call"},
+             device_speedup=old["device_ms"] / blk_dev if blk_dev and old["device_ms"] else "not measured",
              plain_forward_ms=sum(plain[s] for s in fwd), plain_backward_ms=sum(plain[s] for s in bwd),
              bound_forward_ms=sum(bounds[s][0] for s in fwd), bound_backward_ms=sum(bounds[s][0] for s in bwd),
              per_stage_bound={s: {"ms": b[0], "by": b[1], "gflop": flops[s] / 1e9, "mbytes": moved[s] / 1e6}
@@ -1235,14 +1296,24 @@ def main() -> int:
              module_forward_ms=mod_f, module_forward_backward_ms=mod_fb,
              module_backward_ms_by_subtraction=mod_fb - mod_f, library_ms=None,
              library="none: no single PyTorch call computes a ConvBlock; the module ConvBlock is beside it")
-        k6["ms"] += sum(ms.values())
-        k6["device_ms"] = k6["device_ms"] + dms if dms and k6["device_ms"] is not None else None
+        k6["ms"] += blk_ms
+        k6["device_ms"] = none_sum([k6["device_ms"], blk_dev])
+        k6["tap3_ms"] += old["ms"]
+        k6["tap3_device_ms"] = none_sum([k6["tap3_device_ms"], old["device_ms"]])
         k6["plain_ms"] += sum(plain.values())
-        k6["bound_ms"] += sum(b[0] for b in bounds.values())
+        k6["bound_ms"] += bound_blk
         k6["flops"] += sum(flops.values())
         k6["bytes"] += sum(moved.values())
         k6["module_ms"] += mod_fb
     k6_by = bound_ms(k6["flops"], k6["bytes"], peaks, "bf16")[1]
+    emit(timing="K6 conv_block_train, five blocks forward and backward (one fused step's)", dtype="bf16",
+         route="wgmma", kernel_ms=k6["ms"], device_ms=k6["device_ms"] or "not measured",
+         tap3_route_ms=k6["tap3_ms"], tap3_route_device_ms=k6["tap3_device_ms"] or "not measured",
+         bound_ms=k6["bound_ms"], bound_by=k6_by, pct_of_bound=100 * k6["bound_ms"] / k6["ms"],
+         device_pct_of_bound=100 * k6["bound_ms"] / k6["device_ms"] if k6["device_ms"] else "not measured",
+         tap3_device_pct_of_bound=(100 * k6["bound_ms"] / k6["tap3_device_ms"] if k6["tap3_device_ms"]
+                                   else "not measured"),
+         plain_ms=k6["plain_ms"], module_blocks_ms=k6["module_ms"])
     del ins, xm, gm
 
     # K3 at the eval's B=2048 and the Trainer's B=64, Z bf16, Y f32. kernel_ms
@@ -1303,22 +1374,30 @@ def main() -> int:
         del Z, Y
 
     # -- 12. the K7 tool path: the port's bench_cross_block_merge --------------------
-    # its equivalence check and its timings (split F3 + F1 against the merged
-    # kernel, the best of 3 rounds of 50); the counters span the whole run
+    # its equivalence checks and its timings (the tap3 pair F3 + F1, K7's
+    # bitwise partner, and the wgmma pair, its yardstick, against the merged
+    # kernel, the best of 3 rounds of 50); the counters span the whole run.
+    # Then each of the three on the device alone
     torch.cuda.synchronize()
     reset_counts()
     tool = merge_tool.run("cuda")
     tool_launches = read_counts()
-    if min(tool_launches[f"conv_block_train.{st}"] for st in ("F31", "F3", "F1")) < 1:
+    if min(tool_launches[f"conv_block_train.{st}"] for st in ("F31", "F3", "F1", "F3_tile", "F1_tile")) < 1:
         raise AssertionError(f"a kernel of the tool path never launched: {tool_launches}")
     x7 = merge_tool.make_inputs(B, T, D2, bf16, dev)
     args7 = (x7["y1"], x7["mi1"], x7["gb1"], x7["w2"], x7["b2"], x7["w0n"], x7["b0n"], tool["k_next"])
     k7_plain = time_ms(lambda: cbt.f31_plain(*args7), reps=5)
+    k7_dev = device_ms(lambda: cbt.f31(*args7))
+    pair_dev = {name: device_ms(lambda f3=f3, f1=f1: f1(f3(*args7[:5]), args7[5], args7[6], tool["k_next"]))
+                for name, f3, f1 in (("tap3", cbt.f3_tile, cbt.f1_tile), ("wgmma", cbt.f3, cbt.f1))}
     k7_flops = conv_flops(D2, 2 * D2, 2) + conv_flops(D2, D2, tool["d0n"])
     k7_bytes = nbytes(*args7[:7]) + 2 * B * T * D2 * 2 + 2 * D2 * 4
     k7_bound, k7_by = bound_ms(k7_flops, k7_bytes, peaks, "bf16")
     emit(tool="speech_decoding_tpu_torch.tools.bench_cross_block_merge", shape=tool["shape"], dtype=tool["dtype"],
-         d0n=tool["d0n"], split_ms=tool["split_ms"], merged_ms=tool["merged_ms"],
+         d0n=tool["d0n"], split_ms=tool["split_ms"], pair_ms=tool["pair_ms"], merged_ms=tool["merged_ms"],
+         merged_device_ms=k7_dev or "not measured", tap3_pair_device_ms=pair_dev["tap3"] or "not measured",
+         wgmma_pair_device_ms=pair_dev["wgmma"] or "not measured", pair_route=tool["pair_route"],
+         vs_pair_max_abs_err=tool["vs_pair_max_abs_err"],
          saving_us_per_boundary=tool["saving_us_per_boundary"], saving_us_per_step=tool["saving_us_per_step"],
          forward_boundaries_per_step=tool["forward_boundaries_per_step"], plain_ms=k7_plain, bound_ms=k7_bound,
          bound_by=k7_by, gflop=k7_flops / 1e9, mbytes=k7_bytes / 1e6, equal=tool["out_y0n_bitwise_equal"],
@@ -1542,7 +1621,8 @@ def main() -> int:
          "library_ms": k5["library_ms"], "device_ms": k5["device_ms"], "timed": "the 30 launches of one pallas_taps step"},
         {"name": "conv_block_train", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/conv_block_train.cu",
-         "header": "speech_decoding_tpu_torch/csrc/tap3.cuh",
+         "header": "speech_decoding_tpu_torch/csrc/hopper.cuh (bf16), speech_decoding_tpu_torch/csrc/tap3.cuh (f32)",
+         "body": "wgmma", "tap3_route_device_ms": k6["tap3_device_ms"] or "not measured",
          "replaces": "speech_decoding_tpu/ops/pallas/conv_block_train.py:334",
          "also_replaces": "speech_decoding_tpu/ops/pallas/conv_block_train.py:409",
          "launches": sum(launches_of(f"conv_block_train.{st}") for st in cbt.STAGES),
@@ -1561,8 +1641,9 @@ def main() -> int:
          "launches_by_path": {k: p["conv_block_train.F31"] for k, p in paths.items()},
          "max_abs_err": max(k7_err.values()),
          "ms": tool["merged_ms"], "plain_ms": k7_plain, "bound_ms": k7_bound, "bound_by": k7_by,
-         "library_ms": None, "split_pair_ms": tool["split_ms"],
-         "library": "none: no single PyTorch call computes it; the split K6 pair F3 + F1 is its yardstick",
+         "library_ms": None, "device_ms": k7_dev or "not measured", "tap3_pair_ms": tool["split_ms"],
+         "wgmma_pair_ms": tool["pair_ms"], "wgmma_pair_device_ms": pair_dev["wgmma"] or "not measured",
+         "library": "none: no single PyTorch call computes it; K6's wgmma pair F3 + F1 is its yardstick",
          "timed": "one block boundary (k_next=1, d0n=4) at the flagship, by the port's bench_cross_block_merge"},
     ])
     print(smi, flush=True)

@@ -14,20 +14,41 @@
 // conv_block_train.py (_fwd_impl: _f1_kernel, _f2_kernel, _f3_kernel;
 // _bwd_rule: _b1_kernel, _b2_kernel, _b3_kernel). Those keep four whole
 // recordings and every weight in VMEM and carry the BN sums, dW and db
-// across a sequential grid. Here every conv is the time-tile of tap3.cuh (a
-// halo of d, weights streamed through shared memory, the BN·GELU of F2, F3
-// and B1 applied as the input is staged, so h0 and h1 never cross device
-// memory in the forward), and every sum is a per-block f32 partial added in a
-// fixed order by tap3::reduce_parts: bitwise repeatable, no float atomics.
+// across a sequential grid. Here every sum is a per-block f32 partial added
+// in a fixed order by tap3::reduce_parts: bitwise repeatable, no float
+// atomics. Every conv runs one of two bodies, with the same per-element
+// epilogues (the functors F1 .. B3c below, so the rounding points are the
+// same on both):
+//   * bf16 (cbt_*_wg): the persistent TMA + mbarrier + wgmma implicit GEMM
+//     of K5 (tap_conv.cu, on hopper.cuh) with a 192-time x 160-column tile,
+//     templated on the epilogue, which works on the accumulator fragments
+//     (a warp wholly inside the output runs the light epilogues without a
+//     guard, so their loads overlap). TMA lands the conv's input in
+//     swizzled shared memory untouched, so the BN·GELU of F2, F3 and B1 is
+//     a pointwise pass that writes h0 or h1 once (bn_gelu_kernel; the same
+//     values tap3's prologue computes), and the conv reads h, whose rows
+//     outside [0, T) the tensor map reads as zero. The GLU conv (F3, B1)
+//     reads w2 packed with channel c's value and gate columns side by side,
+//     so one accumulator thread holds both. The BN-backward passes of B2 and
+//     B3 read and write 16 bytes a row (bn_bwd_wg_kernel). A 270-channel x
+//     (block 0) reaches F1 as a 272-channel copy made by the wrapper, which
+//     B3's K2 launch reuses.
+//   * f32, and bf16 outside the wrapper's route rule: the time tile of
+//     tap3.cuh (a halo of d, weights streamed through shared memory, the
+//     BN·GELU applied as the input is staged). K7 runs on it too, and the
+//     bf16 entries cbt_*_bf16 stay K7's bitwise partner.
 //
 // Where a stage splits (each stage is one call of its wrapper):
-//   F1, F2: the conv with its epilogue, then the sums' reduction.
-//   F3: the conv (both GLU halves in one block) with its epilogue.
-//   B1: (a) recompute h1 and conv2 (dumping h1), the GLU backward in the
-//       epilogue -> dy2 (B, T, 2C) and db2's partials; (b) the wrapper takes
-//       dW2 = K2(h1, dy2, 2); (c) the transposed conv of dy2 -> du1 and the
-//       BN1 sums. Extra traffic against the Pallas body: h1 and dy2 written
-//       and read back (3 * B*T*C elements written, 5 read).
+//   F1, F2: the conv with its epilogue, then the sums' reduction (wgmma:
+//       F2 first writes h0).
+//   F3: the conv (both GLU halves in one thread) with its epilogue (wgmma:
+//       after writing h1).
+//   B1: (a) h1 (tap3: dumped by the conv's prologue; wgmma: the pointwise
+//       pass) and conv2, the GLU backward in the epilogue -> dy2 (B, T, 2C)
+//       and db2's partials; (b) the wrapper takes dW2 = K2(h1, dy2, 2); (c)
+//       the transposed conv of dy2 -> du1 and the BN1 sums. Extra traffic
+//       against the Pallas body: h1 and dy2 written and read back (3 *
+//       B*T*C elements written, 5 read).
 //   B2: (a) a pointwise pass -> dy1 and h0 (for K2) and db1's partials; (b)
 //       dW1 = K2(h0, dy1, d1) in the wrapper; (c) the transposed conv of dy1
 //       + dy1 -> du0 and the BN0 sums. Extra: dy1 and h0, 2 written, 4 read.
@@ -37,7 +58,11 @@
 //
 // What bounds it on an H100: operations. At B = 64, T = 360, C = 320 a block
 // with k >= 1 is 56.6 GFLOP forward (57 us at 989 TFLOP/s bf16) and 141.6
-// GFLOP backward, of which the K2 launches are 42.5.
+// GFLOP backward, of which the K2 launches are 42.5. On the wgmma route a
+// block takes ~1.0 ms on the device of an NVIDIA H100 80GB HBM3 at 700 W,
+// ~20% of that bound (PERF.md); the conv epilogues stall the tensor cores
+// (one 416-thread block a SM, capped at 128 registers), and the pointwise
+// passes and K2 are a third of it.
 //
 // K7 (cbt_f31): F3 of block k fused with F1 of block k+1, so that `out` is
 // not read back from device memory by the next conv. Replaces the Pallas TPU
@@ -49,17 +74,19 @@
 // the conv tile, so F3's work doubles for every d0n <= 32), keeps that window
 // of `out` in shared memory in dt (zero outside the recording), writes its
 // own 64 rows to `out` (the backward still needs them), then runs F1's conv
-// on the window. Both convs go through tap3::Tile with the split kernels'
+// on the window. Both convs go through tap3::Tile with the tap3 entries'
 // chunk walk and tap order, and the sums through the same per-(recording,
-// tile) partials and reduce_parts, so out, y0n and s0n equal the split
-// pair's bit for bit. Bound: operations, as the split pair (28.3 + 14.2
-// GFLOP at the flagship), and it saves one B*T*C read of `out` (14.7 MB in
-// bf16) against the split pair.
+// tile) partials and reduce_parts, so out, y0n and s0n equal those of
+// cbt_f3 then cbt_f1 (the tap3 pair) bit for bit. Bound: operations, as the
+// split pair (28.3 + 14.2 GFLOP at the flagship), and it saves one B*T*C
+// read of `out` (14.7 MB in bf16) against the split pair.
 //
 // C interface (ctypes): pointers and the stream as void*; each entry returns
 // the first non-zero cudaError_t of its launches. `part` is f32 scratch of
-// B * ceil(T / 64) * 2 * C elements.
+// B * ceil(T / TM) * 2 * C elements for the conv tile's TM (64 on tap3, 192
+// on wgmma), and at least B * ceil(T / 64) * C (the BN-backward pass's).
 
+#include "hopper.cuh"
 #include "tap3.cuh"
 
 namespace {
@@ -71,14 +98,16 @@ using tap3::to_f;
 using tap3::TM;
 using tap3::TN;
 
+// kStats: the epilogue's per-channel sums go to `part`; kUnguarded: the wgmma
+// body may run it without a guard where a whole warp lies inside the output
 template <typename T>
 struct F1 {
-  static constexpr bool kStats = true;
+  static constexpr bool kStats = true, kUnguarded = true;
   const float* bias; const T* skip; T* y; int T_, C;
   __device__ void operator()(int b, int t, int c, float v, float, float& s0, float& s1) const {
     const size_t i = ((size_t)b * T_ + t) * C + c;
-    v += bias[c];
-    if (skip) v += to_f(skip[i]);
+    v += tap3::ldg(bias + c);
+    if (skip) v += tap3::ldg(skip + i);
     const T yc = from_f<T>(v);
     y[i] = yc;
     const float f = to_f(yc);
@@ -87,14 +116,15 @@ struct F1 {
   }
 };
 
-template <typename T>
+// h0, the skip, is pro(src): BnGelu of y0 on tap3, the stored h0 on wgmma
+template <typename T, class Pro>
 struct F2 {
-  static constexpr bool kStats = true;
-  const float* bias; const T* y0; const float* mi0; const float* gb0; T* y1; int T_, C;
+  static constexpr bool kStats = true, kUnguarded = true;
+  const float* bias; const T* src; Pro pro; T* y1; int T_, C;
   __device__ void operator()(int b, int t, int c, float v, float, float& s0, float& s1) const {
     const size_t i = ((size_t)b * T_ + t) * C + c;
-    const float h0 = tap3::BnGelu<T>{mi0, gb0, C}(to_f(y0[i]), c);
-    const T yc = from_f<T>(v + bias[c] + h0);
+    const float h0 = pro(tap3::ldg(src + i), c);
+    const T yc = from_f<T>(v + tap3::ldg(bias + c) + h0);
     y1[i] = yc;
     const float f = to_f(yc);
     s0 += f;
@@ -104,12 +134,12 @@ struct F2 {
 
 template <typename T>
 struct F3 {
-  static constexpr bool kStats = false;
+  static constexpr bool kStats = false, kUnguarded = true;
   const float* b2; T* out; int T_, C;
   // out = dt(dt(a + b2[c]) * dt(sigmoid(g + b2[C + c]))): F3's and K7's GLU
   __device__ static T glu(float a, float g, const float* b2, int C, int c) {
-    a += b2[c];
-    g += b2[C + c];
+    a += tap3::ldg(b2 + c);
+    g += tap3::ldg(b2 + C + c);
     return from_f<T>(rnd<T>(a) * rnd<T>(tap3::sigmoid(g)));
   }
   __device__ void operator()(int b, int t, int c, float a, float g, float&, float&) const {
@@ -120,12 +150,12 @@ struct F3 {
 // GLU backward: dy2 = [dout * sig, dout * a * sig * (1 - sig)] in dt; sums for db2
 template <typename T>
 struct B1a {
-  static constexpr bool kStats = true;
+  static constexpr bool kStats = true, kUnguarded = true;
   const float* b2; const T* dout; T* dy2; int T_, C;
   __device__ void operator()(int b, int t, int c, float a, float g, float& s0, float& s1) const {
-    a += b2[c];
-    g += b2[C + c];
-    const float sig = tap3::sigmoid(g), df = to_f(dout[((size_t)b * T_ + t) * C + c]);
+    a += tap3::ldg(b2 + c);
+    g += tap3::ldg(b2 + C + c);
+    const float sig = tap3::sigmoid(g), df = tap3::ldg(dout + ((size_t)b * T_ + t) * C + c);
     const T da = from_f<T>(df * sig), db = from_f<T>(df * a * sig * (1.f - sig));
     T* row = dy2 + ((size_t)b * T_ + t) * 2 * C;
     row[c] = da;
@@ -138,13 +168,13 @@ struct B1a {
 // du = dt(dh * GELU'(u)), u and x̂ from BN applied in dt; sums of du and du·x̂
 template <typename T>
 struct GeluBnBwd {
-  static constexpr bool kStats = true;
+  static constexpr bool kStats = true, kUnguarded = false;
   const T* skip; const T* y; const float* mi; const float* gb; T* du; int T_, C;
   __device__ void operator()(int b, int t, int c, float dh, float, float& s0, float& s1) const {
     const size_t i = ((size_t)b * T_ + t) * C + c;
-    if (skip) dh += to_f(skip[i]);
+    if (skip) dh += tap3::ldg(skip + i);
     float xhat, u;
-    tap3::bn_apply<T>(to_f(y[i]), c, mi, gb, C, xhat, u);
+    tap3::bn_apply<T>(tap3::ldg(y + i), c, mi, gb, C, xhat, u);
     const T v = from_f<T>(dh * tap3::dgelu(u));
     du[i] = v;
     s0 += to_f(v);
@@ -154,11 +184,11 @@ struct GeluBnBwd {
 
 template <typename T>
 struct B3c {
-  static constexpr bool kStats = false;
+  static constexpr bool kStats = false, kUnguarded = true;
   const T* skip; T* dx; int T_, C;
   __device__ void operator()(int b, int t, int c, float v, float, float&, float&) const {
     const size_t i = ((size_t)b * T_ + t) * C + c;
-    if (skip) v += to_f(skip[i]);
+    if (skip) v += tap3::ldg(skip + i);
     dx[i] = from_f<T>(v);
   }
 };
@@ -182,11 +212,11 @@ __global__ void __launch_bounds__(tap3::THREADS) bn_bwd_kernel(BnBwd<T> a) {
     const float m = a.mi[co], inv = a.mi[C + co], g = a.gc[co], c1 = a.gc[C + co], c2 = a.gc[2 * C + co];
     for (int r = half * (TM / 2); r < (half + 1) * (TM / 2) && t0 + r < a.T_; ++r) {
       const size_t i = ((size_t)b * a.T_ + t0 + r) * C + co;
-      const float xhat = (to_f(a.y[i]) - m) * inv;
-      const T v = from_f<T>(inv * (g * to_f(a.du[i]) - c1 - xhat * c2));
+      const float xhat = (tap3::ldg(a.y + i) - m) * inv;
+      const T v = from_f<T>(inv * (g * tap3::ldg(a.du + i) - c1 - xhat * c2));
       a.dy[i] = v;
       s += to_f(v);
-      if (a.h) a.h[i] = from_f<T>(tap3::BnGelu<T>{a.mip, a.gbp, C}(to_f(a.yp[i]), co));
+      if (a.h) a.h[i] = from_f<T>(tap3::BnGelu<T>{a.mip, a.gbp, C}(tap3::ldg(a.yp + i), co));
     }
   }
   red[half * TN + c] = s;
@@ -221,8 +251,9 @@ int f2(const void* y0, const void* mi0, const void* gb0, const void* w1, const v
        float* s1, int B, int Tlen, int C, int d1, cudaStream_t st) {
   const tap3::Conv g = tap3::make_conv(B, Tlen, C, C, C, 0, d1, y0, w1);
   const float *mi = (const float*)mi0, *gb = (const float*)gb0;
-  CHECK((tap3::launch_conv<T, 1>(y0, w1, g, tap3::BnGelu<T>{mi, gb, C},
-                                 F2<T>{(const float*)b1, (const T*)y0, mi, gb, (T*)y1, Tlen, C}, part, st)));
+  const tap3::BnGelu<T> pro{mi, gb, C};
+  CHECK((tap3::launch_conv<T, 1>(y0, w1, g, pro, F2<T, tap3::BnGelu<T>>{(const float*)b1, (const T*)y0, pro, (T*)y1,
+                                                                       Tlen, C}, part, st)));
   return tap3::reduce(part, s1, B * g.ntile, 2 * C, st);
 }
 
@@ -391,6 +422,356 @@ int f31(const void* y1, const void* mi1, const void* gb1, const void* w2, const 
   return tap3::reduce(part, s0n, B * g1.ntile, 2 * C, st);
 }
 
+// ---- the bf16 route: K5's wgmma body with K6's epilogues ------------------------
+
+namespace wg {
+constexpr int CONSUMERS = 3;          // consumer warpgroups, 64 times each (K5's shape)
+constexpr int TM = 64 * CONSUMERS;    // times a tile
+constexpr int TN = 160;               // packed output columns a tile (wgmma n)
+constexpr int STAGES = 4;
+constexpr int ABOX = TM * 128;        // the input: TM rows of 64 channels, 128-byte swizzled
+constexpr int BBOX = TN * 128;        // W_j: 160 packed output rows of 64 input channels
+constexpr int STAGE = ABOX + BBOX;
+constexpr int WARPS = 4 * CONSUMERS;
+constexpr int THREADS = CONSUMERS * 128 + 32;  // the consumer warpgroups, then one producer warp
+constexpr int RED = WARPS * 2 * TN;   // floats: every consumer warp's two sums of every column
+constexpr size_t SMEM = (size_t)STAGES * STAGE + 2 * RED * sizeof(float) + 2 * STAGES * sizeof(uint64_t) + 1024;
+
+inline int t_tiles(int Tlen) { return (Tlen + TM - 1) / TM; }
+}  // namespace wg
+
+// a barrier of the consumer warpgroups alone (the producer runs ahead)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(wg::CONSUMERS * 128) : "memory");
+}
+
+// The epilogue of one thread's accumulator fragment: every (row, channel)
+// it holds through epi (GUARD: only those inside the output), and with
+// Epi::kStats the warp's per-channel sums into r[(2 * warp + {0, 1}) * TN +
+// channel in the tile]: each thread adds its own two rows, the 8 lanes that
+// share a channel add theirs with shuffles in a fixed tree.
+template <bool GUARD, int NG, class Epi>
+__device__ __forceinline__ void epilogue(const Epi& epi, const float (&acc)[wg::TN / 2], float* r, int warp, int lane,
+                                         int b, int t_lo, int ch0, int Tlen, int Cout) {
+#pragma unroll
+  for (int c = 0; c < wg::TN / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 2 / NG; ++e) {
+      const int lc = (8 * c + 2 * (lane % 4) + e) / NG, ch = ch0 + lc;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = t_lo + 8 * half;
+        if (!GUARD || (t < Tlen && ch < Cout))
+          epi(b, t, ch, acc[4 * c + 2 * half + e], acc[4 * c + 2 * half + 1], s0, s1);
+      }
+      if constexpr (Epi::kStats) {
+#pragma unroll
+        for (int o = 4; o < 32; o *= 2) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if (lane < 4) {
+          r[(2 * warp) * wg::TN + lc] = s0;
+          r[(2 * warp + 1) * wg::TN + lc] = s1;
+        }
+      }
+    }
+  }
+}
+
+// The dilated three-tap conv of x (B, T, cin_ld) with the K-major weights wk
+// (3, NG * Cout, cin_ld), every output through epi. K5's kernel
+// (tap_conv.cu): persistent blocks walk the (co tile, time tile, recording)
+// tiles, one producer thread keeps a four-stage ring of TMA loads of (tap j,
+// 64-channel chunk), three consumer warpgroups run wgmma m64n160k16 into one
+// f32 accumulator. NG = 1: packed column n is channel n. NG = 2 (the GLU
+// conv): packed columns 2c and 2c + 1 are channel c's value and gate, so a
+// tile of 160 packed columns is 80 channels, and the register pair that
+// holds a thread's two adjacent columns holds both halves of one channel.
+// Sums (Epi::kStats): each thread adds its own two rows of a column, the 8
+// lanes of a warp that share the column add theirs with shuffles in a fixed
+// tree, the 12 warps' sums go through shared memory (double-buffered across
+// tiles) and are added in warp order into the tile's slot of `part`,
+// part[(b * t_tiles + time tile) * 2 * Cout + {0, Cout} + c].
+template <int NG, class Epi>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+conv_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap, const Epi epi,
+               float* __restrict__ part, int Tlen, int Cout, int d, int chunks, int co_tiles, int t_tiles,
+               int tiles) {
+  // local names: TM and TN at namespace scope are tap3's
+  constexpr int TM = wg::TM, TN = wg::TN, STAGES = wg::STAGES, ABOX = wg::ABOX, STAGE = wg::STAGE,
+                WARPS = wg::WARPS, CONSUMERS = wg::CONSUMERS, RED = wg::RED;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  float* red = reinterpret_cast<float*>(smem + (size_t)STAGES * STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * RED);
+  uint64_t* empty = full + STAGES;
+  const int steps = 3 * chunks;
+  const int wg_ = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], WARPS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg_ == CONSUMERS) {  // producer warp: one thread issues every load
+    if (threadIdx.x == CONSUMERS * 128) {
+      int k = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int co0 = tile % co_tiles * TN, t0 = tile / co_tiles % t_tiles * TM, b = tile / (co_tiles * t_tiles);
+        for (int s = 0; s < steps; ++s, ++k) {
+          const int st = k % STAGES, j = s / chunks, c = s % chunks;
+          if (k >= STAGES) hopper::mbar_wait(&empty[st], (k / STAGES - 1) & 1);
+          unsigned char* stage = smem + (size_t)st * STAGE;
+          hopper::mbar_arrive_expect(&full[st], STAGE);
+          hopper::tma_load_3d(stage, &xmap, &full[st], 64 * c, t0 + (j - 1) * d, b);
+          hopper::tma_load_3d(stage + ABOX, &wmap, &full[st], 64 * c, co0, j);
+        }
+      }
+    }
+    return;
+  }
+
+  // accumulator fragment: warp w holds rows 16w .. 16w + 15; register 4c + e
+  // is row lane / 4 (+ 8 for e >= 2), column 8c + 2 (lane % 4) + e % 2
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, warp = 4 * wg_ + w;
+  constexpr int COLS = TN / NG;  // output channels a tile
+  float acc[TN / 2];
+  int k = 0, it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+    const int co0 = tile % co_tiles * TN, tt = tile / co_tiles % t_tiles, b = tile / (co_tiles * t_tiles);
+#pragma unroll
+    for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+    for (int s = 0; s < steps; ++s, ++k) {
+      const int st = k % STAGES;
+      hopper::mbar_wait(&full[st], (k / STAGES) & 1);
+      const unsigned char* a_t = smem + (size_t)st * STAGE + wg_ * 64 * 128;  // this warpgroup's 64 rows
+      const unsigned char* b_t = smem + (size_t)st * STAGE + ABOX;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = hopper::desc_sw128(a_t + kk * 32, 16, 1024);
+        const uint64_t db = hopper::desc_sw128(b_t + kk * 32, 16, 1024);
+        hopper::wgmma_m64n160k16<0, 0>(acc, da, db);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
+    }
+
+    const int ch0 = co0 / NG, t_lo = tt * TM + 64 * wg_ + 16 * w + lane / 4;
+    float* r = red + (it & 1) * RED;
+    // a warp whose 16 rows and every channel lie inside the output runs a
+    // light epilogue without a guard, so its loads can be issued together
+    // (the test is warp-uniform: both paths hold full-warp shuffles); the
+    // GELU backward's, unguarded, spills and runs slower
+    if (Epi::kUnguarded && tt * TM + 64 * wg_ + 16 * w + 15 < Tlen && ch0 + COLS <= Cout)
+      epilogue<false, NG>(epi, acc, r, warp, lane, b, t_lo, ch0, Tlen, Cout);
+    else
+      epilogue<true, NG>(epi, acc, r, warp, lane, b, t_lo, ch0, Tlen, Cout);
+    if constexpr (Epi::kStats) {
+      consumers_sync();
+      for (int i = threadIdx.x; i < 2 * COLS; i += CONSUMERS * 128) {
+        const int s = i / COLS, lc = i % COLS;
+        if (ch0 + lc < Cout) {
+          float v = 0.f;
+          for (int q = 0; q < WARPS; ++q) v += r[(2 * q + s) * TN + lc];
+          part[((size_t)b * t_tiles + tt) * 2 * Cout + (size_t)s * Cout + ch0 + lc] = v;
+        }
+      }
+    }
+  }
+}
+
+// x (B, T, cin_ld) bf16, channels zero-padded to cin_ld (a multiple of 8),
+// and wk (3, NG * Cout, cin_ld), both 16-byte aligned; sms: one persistent
+// block each
+template <int NG, class Epi>
+int conv_wg(const void* x, int cin_ld, const void* wk, const Epi& epi, float* part, int B, int Tlen, int Cout, int d,
+            int sms, cudaStream_t st) {
+  if ((long long)B * Tlen == 0 || Cout == 0) return (int)cudaSuccess;
+  CUtensorMap xmap, wmap;
+  if (!hopper::make_map_bf16(&xmap, x, cin_ld, Tlen, B, wg::TM) ||
+      !hopper::make_map_bf16(&wmap, wk, cin_ld, NG * Cout, 3, wg::TN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = conv_wg_kernel<NG, Epi>;
+  CHECK((int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wg::SMEM));
+  const int co_tiles = (NG * Cout + wg::TN - 1) / wg::TN, t_tiles = wg::t_tiles(Tlen);
+  const long long tiles = (long long)co_tiles * t_tiles * B;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kernel<<<grid, wg::THREADS, wg::SMEM, st>>>(xmap, wmap, epi, part, Tlen, Cout, d, (cin_ld + 63) / 64, co_tiles,
+                                              t_tiles, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
+// h = GELU(BN(y)) in bf16 (C % 8 == 0, bases 16-byte aligned): the conv
+// input of F2 (h0), F3 and B1 (h1), with the values tap3's BnGelu prologue
+// gives. Thread (g, r) takes channels 8g .. 8g + 7 of rows r, r + R, ...,
+// 16 bytes a row, so it loads its channels' BatchNorm constants once.
+__global__ void __launch_bounds__(256) bn_gelu_kernel(const bf16* __restrict__ y, const float* mi, const float* gb,
+                                                      bf16* __restrict__ h, long long rows, int C) {
+  const int C8 = C / 8, per = blockDim.x / C8, g = threadIdx.x % C8, r0 = threadIdx.x / C8;
+  tap3::BnConst k[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) k[q] = tap3::bn_const<bf16>(mi, gb, C, 8 * g + q);
+  for (long long r = (long long)blockIdx.x * per + r0; r < rows; r += (long long)gridDim.x * per) {
+    const size_t i = (size_t)r * C8 + g;
+    const uint4 raw = reinterpret_cast<const uint4*>(y)[i];
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+    uint4 out;
+    bf16* o = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) o[q] = from_f<bf16>(tap3::bn_gelu<bf16>(to_f(e[q]), k[q]));
+    reinterpret_cast<uint4*>(h)[i] = out;
+  }
+}
+
+int bn_gelu(const void* y, const void* mi, const void* gb, void* h, int B, int Tlen, int C, int sms,
+            cudaStream_t st) {
+  const long long rows = (long long)B * Tlen;
+  const int C8 = C / 8;
+  if (rows == 0 || C8 == 0) return (int)cudaSuccess;
+  if (C8 > 256) return (int)cudaErrorInvalidValue;
+  const int per = 256 / C8;
+  const long long blocks = (rows + per - 1) / per;
+  const int grid = (int)(blocks < 8LL * sms ? blocks : 8LL * sms);
+  bn_gelu_kernel<<<grid, per * C8, 0, st>>>((const bf16*)y, (const float*)mi, (const float*)gb, (bf16*)h, rows, C);
+  return (int)cudaGetLastError();
+}
+
+// BnBwd for the bf16 route (C % 8 == 0, 16-byte-aligned tensors): block
+// (tile, b) takes rows t0 .. t0 + 63 of recording b, as bn_bwd_kernel; thread
+// (g, r) takes channels 8g .. 8g + 7 of rows t0 + r, t0 + r + per, ..., 16
+// bytes a row, with the channels' constants loaded once. The sums of dy go
+// through shared memory and are added in row-group order into the tile's
+// slot of part, as bn_bwd_kernel's.
+__global__ void __launch_bounds__(256) bn_bwd_wg_kernel(BnBwd<bf16> a) {
+  __shared__ float red[256 * 8];
+  const int C = a.C, C8 = C / 8, per = blockDim.x / C8, g = threadIdx.x % C8, r0 = threadIdx.x / C8;
+  const int t0 = blockIdx.x * TM, b = blockIdx.y;
+  float sum[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) sum[q] = 0.f;
+  float m[8], inv[8], gc[8], c1[8], c2[8];
+  tap3::BnConst kp[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int c = 8 * g + q;
+    m[q] = a.mi[c]; inv[q] = a.mi[C + c];
+    gc[q] = a.gc[c]; c1[q] = a.gc[C + c]; c2[q] = a.gc[2 * C + c];
+    if (a.h) kp[q] = tap3::bn_const<bf16>(a.mip, a.gbp, C, c);
+  }
+  for (int r = r0; r < TM && t0 + r < a.T_; r += per) {
+    const size_t i = ((size_t)b * a.T_ + t0 + r) * C8 + g;
+    const uint4 du_raw = reinterpret_cast<const uint4*>(a.du)[i], y_raw = reinterpret_cast<const uint4*>(a.y)[i];
+    const bf16 *du = reinterpret_cast<const bf16*>(&du_raw), *y = reinterpret_cast<const bf16*>(&y_raw);
+    uint4 dy_raw;
+    bf16* dy = reinterpret_cast<bf16*>(&dy_raw);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float xhat = (to_f(y[q]) - m[q]) * inv[q];
+      dy[q] = from_f<bf16>(inv[q] * (gc[q] * to_f(du[q]) - c1[q] - xhat * c2[q]));
+      sum[q] += to_f(dy[q]);
+    }
+    reinterpret_cast<uint4*>(a.dy)[i] = dy_raw;
+    if (a.h) {
+      const uint4 yp_raw = reinterpret_cast<const uint4*>(a.yp)[i];
+      const bf16* yp = reinterpret_cast<const bf16*>(&yp_raw);
+      uint4 h_raw;
+      bf16* h = reinterpret_cast<bf16*>(&h_raw);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) h[q] = from_f<bf16>(tap3::bn_gelu<bf16>(to_f(yp[q]), kp[q]));
+      reinterpret_cast<uint4*>(a.h)[i] = h_raw;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) red[threadIdx.x * 8 + q] = sum[q];
+  __syncthreads();
+  if (r0 == 0) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      float v = 0.f;
+      for (int rr = 0; rr < per; ++rr) v += red[(rr * C8 + g) * 8 + q];
+      a.part[((size_t)b * a.ntile + blockIdx.x) * C + 8 * g + q] = v;
+    }
+  }
+}
+
+int bn_bwd_wg(const BnBwd<bf16>& a, int B, cudaStream_t stream) {
+  const int C8 = a.C / 8;
+  if ((long long)B * a.T_ == 0 || C8 == 0) return (int)cudaSuccess;
+  if (C8 > 256) return (int)cudaErrorInvalidValue;
+  bn_bwd_wg_kernel<<<dim3(a.ntile, B), 256 / C8 * C8, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int f1_wg(const void* xp, const void* w0k, const void* b0, void* y0, float* part, float* s0, int B, int Tlen,
+          int cin_ld, int C, int d0, int skip, int sms, cudaStream_t st) {
+  CHECK((conv_wg<1>(xp, cin_ld, w0k, F1<bf16>{(const float*)b0, skip ? (const bf16*)xp : nullptr, (bf16*)y0, Tlen, C},
+                    part, B, Tlen, C, d0, sms, st)));
+  return tap3::reduce(part, s0, B * wg::t_tiles(Tlen), 2 * C, st);
+}
+
+int f2_wg(const void* y0, const void* mi0, const void* gb0, const void* w1k, const void* b1, void* h0, void* y1,
+          float* part, float* s1, int B, int Tlen, int C, int d1, int sms, cudaStream_t st) {
+  CHECK(bn_gelu(y0, mi0, gb0, h0, B, Tlen, C, sms, st));
+  CHECK((conv_wg<1>(h0, C, w1k, F2<bf16, tap3::Ident>{(const float*)b1, (const bf16*)h0, {}, (bf16*)y1, Tlen, C},
+                    part, B, Tlen, C, d1, sms, st)));
+  return tap3::reduce(part, s1, B * wg::t_tiles(Tlen), 2 * C, st);
+}
+
+int f3_wg(const void* y1, const void* mi1, const void* gb1, const void* w2g, const void* b2, void* h1, void* out,
+          int B, int Tlen, int C, int sms, cudaStream_t st) {
+  CHECK(bn_gelu(y1, mi1, gb1, h1, B, Tlen, C, sms, st));
+  return conv_wg<2>(h1, C, w2g, F3<bf16>{(const float*)b2, (bf16*)out, Tlen, C}, nullptr, B, Tlen, C, 2, sms, st);
+}
+
+int b1_wg(const void* dout, const void* y1, const void* mi1, const void* gb1, const void* w2g, const void* b2,
+          const void* w2tk, void* h1, void* dy2, void* du1, float* part, float* db2, float* s, int B, int Tlen, int C,
+          int sms, cudaStream_t st) {
+  const float *mi = (const float*)mi1, *gb = (const float*)gb1;
+  const int np = B * wg::t_tiles(Tlen);
+  CHECK(bn_gelu(y1, mi, gb, h1, B, Tlen, C, sms, st));
+  CHECK((conv_wg<2>(h1, C, w2g, B1a<bf16>{(const float*)b2, (const bf16*)dout, (bf16*)dy2, Tlen, C}, part, B, Tlen,
+                    C, 2, sms, st)));
+  CHECK(tap3::reduce(part, db2, np, 2 * C, st));
+  CHECK((conv_wg<1>(dy2, 2 * C, w2tk, GeluBnBwd<bf16>{nullptr, (const bf16*)y1, mi, gb, (bf16*)du1, Tlen, C}, part,
+                    B, Tlen, C, 2, sms, st)));
+  return tap3::reduce(part, s, np, 2 * C, st);
+}
+
+int b2_wg(const void* du1, const void* y1, const void* mi1, const void* g1c, const void* y0, const void* mi0,
+          const void* gb0, const void* w1tk, void* dy1, void* h0, void* du0, float* part, float* db1, float* s, int B,
+          int Tlen, int C, int d1, int sms, cudaStream_t st) {
+  const int ntile = (Tlen + TM - 1) / TM;  // the BN-backward pass's 64-row tiles
+  const float *mi0f = (const float*)mi0, *gb0f = (const float*)gb0;
+  CHECK(bn_bwd_wg(BnBwd<bf16>{(const bf16*)du1, (const bf16*)y1, (const float*)mi1, (const float*)g1c, (bf16*)dy1,
+                              (const bf16*)y0, mi0f, gb0f, (bf16*)h0, part, Tlen, C, ntile}, B, st));
+  CHECK(tap3::reduce(part, db1, B * ntile, C, st));
+  CHECK((conv_wg<1>(dy1, C, w1tk,
+                    GeluBnBwd<bf16>{(const bf16*)dy1, (const bf16*)y0, mi0f, gb0f, (bf16*)du0, Tlen, C}, part, B,
+                    Tlen, C, d1, sms, st)));
+  return tap3::reduce(part, s, B * wg::t_tiles(Tlen), 2 * C, st);
+}
+
+int b3_wg(const void* du0, const void* y0, const void* mi0, const void* g0c, const void* w0tk, void* dy0, void* dx,
+          float* part, float* db0, int B, int Tlen, int Cin, int C, int d0, int skip, int sms, cudaStream_t st) {
+  const int ntile = (Tlen + TM - 1) / TM;
+  CHECK(bn_bwd_wg(BnBwd<bf16>{(const bf16*)du0, (const bf16*)y0, (const float*)mi0, (const float*)g0c, (bf16*)dy0,
+                              nullptr, nullptr, nullptr, nullptr, part, Tlen, C, ntile}, B, st));
+  CHECK(tap3::reduce(part, db0, B * ntile, C, st));
+  // dx has Cin channels (270 at block 0): packed rows past Cin read as zero, columns past Cin are not stored
+  return conv_wg<1>(dy0, C, w0tk, B3c<bf16>{skip ? (const bf16*)dy0 : nullptr, (bf16*)dx, Tlen, Cin}, nullptr, B,
+                    Tlen, Cin, d0, sms, st);
+}
+
 }  // namespace
 
 // Shapes: x (B, T, Cin); y0, y1, out, du1, du0, dy1, dy0, h0, h1, y0n (B, T, C);
@@ -439,3 +820,43 @@ int f31(const void* y1, const void* mi1, const void* gb1, const void* w2, const 
 
 ENTRIES(f32, float)
 ENTRIES(bf16, bf16)
+
+// The bf16 route on wgmma (csrc/hopper.cuh). Every conv input and packed
+// weight 16-byte aligned, C % 8 == 0, y0 and y1 16-byte aligned (the BN·GELU
+// pass reads them 16 bytes at a time). xp (B, T, cin_ld): x with its
+// channels zero-padded to cin_ld; K-major weights (wk[j, n, ci] = W_j[ci,
+// n]): w0k (3, C, cin_ld), w1k (3, C, C), w2g (3, 2C, C) with channel c's
+// value and gate columns at n = 2c and 2c + 1, w2tk (3, C, 2C), w1tk (3, C,
+// C) and w0tk (3, Cin, C) those of the transposed convs; h0 and h1 (B, T, C)
+// the BN·GELU pass's output (F2's and F3's scratch, B1's h1 for K2); sms:
+// the card's SM count. Other arguments as the tap3 entries'.
+extern "C" int cbt_f1_wg(const void* xp, const void* w0k, const void* b0, void* y0, void* part, void* s0, int B,
+                         int Tlen, int cin_ld, int C, int d0, int skip, int sms, void* st) {
+  return f1_wg(xp, w0k, b0, y0, (float*)part, (float*)s0, B, Tlen, cin_ld, C, d0, skip, sms, (cudaStream_t)st);
+}
+extern "C" int cbt_f2_wg(const void* y0, const void* mi0, const void* gb0, const void* w1k, const void* b1, void* h0,
+                         void* y1, void* part, void* s1, int B, int Tlen, int C, int d1, int sms, void* st) {
+  return f2_wg(y0, mi0, gb0, w1k, b1, h0, y1, (float*)part, (float*)s1, B, Tlen, C, d1, sms, (cudaStream_t)st);
+}
+extern "C" int cbt_f3_wg(const void* y1, const void* mi1, const void* gb1, const void* w2g, const void* b2, void* h1,
+                         void* out, int B, int Tlen, int C, int sms, void* st) {
+  return f3_wg(y1, mi1, gb1, w2g, b2, h1, out, B, Tlen, C, sms, (cudaStream_t)st);
+}
+extern "C" int cbt_b1_wg(const void* dout, const void* y1, const void* mi1, const void* gb1, const void* w2g,
+                         const void* b2, const void* w2tk, void* h1, void* dy2, void* du1, void* part, void* db2,
+                         void* s, int B, int Tlen, int C, int sms, void* st) {
+  return b1_wg(dout, y1, mi1, gb1, w2g, b2, w2tk, h1, dy2, du1, (float*)part, (float*)db2, (float*)s, B, Tlen, C, sms,
+               (cudaStream_t)st);
+}
+extern "C" int cbt_b2_wg(const void* du1, const void* y1, const void* mi1, const void* g1c, const void* y0,
+                         const void* mi0, const void* gb0, const void* w1tk, void* dy1, void* h0, void* du0, void* part,
+                         void* db1, void* s, int B, int Tlen, int C, int d1, int sms, void* st) {
+  return b2_wg(du1, y1, mi1, g1c, y0, mi0, gb0, w1tk, dy1, h0, du0, (float*)part, (float*)db1, (float*)s, B, Tlen, C,
+               d1, sms, (cudaStream_t)st);
+}
+extern "C" int cbt_b3_wg(const void* du0, const void* y0, const void* mi0, const void* g0c, const void* w0tk,
+                         void* dy0, void* dx, void* part, void* db0, int B, int Tlen, int Cin, int C, int d0, int skip,
+                         int sms, void* st) {
+  return b3_wg(du0, y0, mi0, g0c, w0tk, dy0, dx, (float*)part, (float*)db0, B, Tlen, Cin, C, d0, skip, sms,
+               (cudaStream_t)st);
+}

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the bf16 bodies of K2
-// (tap_conv_dw.cu), K5 (tap_conv.cu), K1 (subject_matmul.cu) and K3
+// (tap_conv_dw.cu), K5 (tap_conv.cu), K6 (conv_block_train.cu, K5's body
+// with each stage's epilogue), K1 (subject_matmul.cu) and K3
 // (retrieval_ranks.cu): TMA tensor
 // maps and plain bulk copies, an mbarrier ring, and warpgroup matrix
 // multiplies (wgmma) read from shared memory (K1's with A from registers).

@@ -56,6 +56,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 // v rounded to T (the identity for f32): one rounding of a PyTorch op in T
 template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+// a read-only load (ld.global.nc) of what no kernel here writes while it
+// runs, so the compiler may issue it ahead of the epilogue's earlier stores
+template <typename T> __device__ __forceinline__ float ldg(const T* p) { return to_f(__ldg(p)); }
 
 __device__ __forceinline__ float gelu(float v) { return 0.5f * v * (1.f + erff(v * 0.70710678118654752f)); }
 
@@ -70,12 +73,33 @@ __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)
 
 // BatchNorm applied in T from f32 statistics, one rounding per op as in
 // PyTorch: mi (2, C) [mean; inv], gb (2, C) [scale; bias]. y is T-valued.
+struct BnConst {
+  float m, inv, scale, bias;  // channel c's, each rounded to T
+};
+
+template <typename T>
+__device__ __forceinline__ BnConst bn_const(const float* mi, const float* gb, int C, int c) {
+  return {rnd<T>(ldg(mi + c)), rnd<T>(ldg(mi + C + c)), rnd<T>(ldg(gb + c)), rnd<T>(ldg(gb + C + c))};
+}
+
+template <typename T>
+__device__ __forceinline__ void bn_apply(float y, const BnConst& k, float& xhat, float& u) {
+  xhat = rnd<T>(rnd<T>(y - k.m) * k.inv);
+  u = rnd<T>(rnd<T>(xhat * k.scale) + k.bias);
+}
+
 template <typename T>
 __device__ __forceinline__ void bn_apply(float y, int c, const float* mi, const float* gb, int C, float& xhat,
                                          float& u) {
-  const float m = rnd<T>(mi[c]), inv = rnd<T>(mi[C + c]);
-  xhat = rnd<T>(rnd<T>(y - m) * inv);
-  u = rnd<T>(rnd<T>(xhat * rnd<T>(gb[c])) + rnd<T>(gb[C + c]));
+  bn_apply<T>(y, bn_const<T>(mi, gb, C, c), xhat, u);
+}
+
+// GELU(BN(y)) rounded to T
+template <typename T>
+__device__ __forceinline__ float bn_gelu(float y, const BnConst& k) {
+  float xhat, u;
+  bn_apply<T>(y, k, xhat, u);
+  return rnd<T>(gelu(u));
 }
 
 struct Ident {
@@ -88,11 +112,7 @@ struct BnGelu {
   const float* mi;
   const float* gb;
   int C;
-  __device__ float operator()(float y, int c) const {
-    float xhat, u;
-    bn_apply<T>(y, c, mi, gb, C, xhat, u);
-    return rnd<T>(gelu(u));
-  }
+  __device__ float operator()(float y, int c) const { return bn_gelu<T>(y, bn_const<T>(mi, gb, C, c)); }
 };
 
 struct Conv {

@@ -30,11 +30,20 @@ is ``f3_plain`` then ``f1_plain``. It runs in
 ``tools/bench_cross_block_merge.py`` of the port, never in the train step.
 
 Each stage function (``f1`` … ``b3``, ``f31``) launches its CUDA kernels
-(``csrc/conv_block_train.cu``, built on the conv tile of ``csrc/tap3.cuh``)
-for CUDA tensors and runs its plain version (``f1_plain`` … ``b3_plain``) for
-CPU tensors; it never falls back on the card. B1, B2 and B3 take their dW
-from K2 (``ops.tap_conv.tap_conv_dw``) on the card (see the CUDA source for
-where each stage splits). Each stage counts one launch a call.
+(``csrc/conv_block_train.cu``) for CUDA tensors and runs its plain version
+(``f1_plain`` … ``b3_plain``) for CPU tensors; it never falls back on the
+card. On the card a stage takes one of two routes, by ``_fast_path``:
+``"wgmma"`` (bf16, C a multiple of 8, 16-byte-aligned y0/y1: K5's TMA-fed
+``wgmma`` body of ``csrc/hopper.cuh`` with the stage's epilogue, its
+weights packed K-major here, the GLU conv's by ``glu_pack``, and the
+BN·GELU of F2, F3 and B1 as a pointwise pass that stores h0 or h1) or
+``"tap3"`` (f32, and bf16 outside the rule: the conv tile of
+``csrc/tap3.cuh``). ``conv_block_train.route`` records the last launch's.
+``TILE`` holds every stage on the tap3 route whatever the dtype (``f3_tile``
+and ``f1_tile`` are K7's bitwise partners); no training or serving path
+calls them. B1, B2 and B3 take their dW from K2
+(``ops.tap_conv.tap_conv_dw``) on the card (see the CUDA source for where
+each stage splits). Each stage counts one launch a call.
 
 The plain versions use ``torch.erf``; the Pallas kernels build erf from exp
 (Abramowitz–Stegun 7.1.26, |err| ≤ 1.5e-7) and the CUDA kernels use
@@ -44,17 +53,33 @@ The plain versions use ``torch.erf``; the Pallas kernels build erf from exp
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import weakref
 from typing import Sequence, Tuple
 
 import torch
+from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.ops import _build
 from speech_decoding_tpu_torch.ops.conv_block import _conv3, _gelu_exact_f32, dilations
-from speech_decoding_tpu_torch.ops.tap_conv import flip_taps, tap_conv_dw, tap_conv_dw_plain
+from speech_decoding_tpu_torch.ops.tap_conv import (
+    _sms, flip_taps, pack_weights, pad_channels, tap_conv_dw, tap_conv_dw_plain,
+)
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_TM = 64  # time rows per block (csrc/tap3.cuh TM)
+# time rows a conv tile: csrc/conv_block_train.cu wg::TM, csrc/tap3.cuh TM (also the BN-backward pass's tile)
+_TM = {"wgmma": 192, "tap3": 64}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# (pointers, ints) of each C entry before its stream; the tap3 entries come in f32 and bf16
+_TAP3_ARGS = {"f1": (6, 6), "f2": (8, 4), "f3": (6, 3), "b1": (13, 3), "b2": (14, 4), "b3": (9, 6), "f31": (11, 4)}
+_WG_ARGS = {"f1": (6, 7), "f2": (9, 5), "f3": (7, 4), "b1": (13, 4), "b2": (14, 5), "b3": (9, 7)}
+# argument types of each C entry, set once when the library loads
+_SIGNATURES = {
+    **{f"cbt_{st}_{suf}": [_P] * p + [_I] * i + [_P] for st, (p, i) in _TAP3_ARGS.items() for suf in ("f32", "bf16")},
+    **{f"cbt_{st}_wg": [_P] * p + [_I] * i + [_P] for st, (p, i) in _WG_ARGS.items()},
+}
+_entries = {}
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -191,13 +216,20 @@ def _check(stage: str, dt, dev, expect: Sequence) -> None:
             raise ValueError(f"conv_block_train {stage} argument {i + 1} must be contiguous on {dev}")
 
 
-def _run(stage: str, dt, tensors, ints, dev) -> None:
-    fn = getattr(_build.load("conv_block_train"), f"cbt_{stage}_{_DTYPES[dt]}")
-    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _entry(name: str):
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(_build.load("conv_block_train"), name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def _run(entry: str, stage: str, tensors, ints, dev) -> None:
+    fn = _entry(entry)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+        err = fn(*[t.data_ptr() for t in tensors], *ints, torch.cuda.current_stream().cuda_stream)
     _build.check(err, f"conv_block_train {stage}")
 
 
@@ -205,39 +237,114 @@ def _empty(dev, *shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device=dev)
 
 
-def _part(B: int, T: int, C: int, dev) -> torch.Tensor:
-    """f32 scratch: two per-channel partial sums for every (recording, time tile)."""
-    return _empty(dev, B * -(-T // _TM) * 2 * C)
+def _part_elems(B: int, T: int, C: int, route: str) -> int:
+    """f32 scratch: two per-channel partial sums for every (recording, time
+    tile) of the route's conv tile, and at least the BN-backward pass's one
+    sum per (recording, 64-row tile)."""
+    n = B * -(-T // _TM[route]) * 2 * C
+    return max(n, B * -(-T // _TM["tap3"]) * C)
 
 
-def _f1_launch(x, w0, b0, k):
+def _part(B: int, T: int, C: int, dev, route: str) -> torch.Tensor:
+    return _empty(dev, _part_elems(B, T, C, route))
+
+
+def _fast_path(dt, C: int, *vec: torch.Tensor) -> bool:
+    """The wgmma route's rule: bf16, C a multiple of 8 (TMA's 16-byte rows
+    of h, dy and the packed weights) and at most 2048 (a pointwise pass's
+    block holds a row's 8-channel groups), and 16-byte-aligned bases for the
+    activations the BN·GELU and BN-backward passes read 16 bytes at a time
+    (``vec``). Every other conv input is a fresh output or a copy made
+    here."""
+    return dt == torch.bfloat16 and C % 8 == 0 and C <= 2048 and all(t.data_ptr() % 16 == 0 for t in vec)
+
+
+def _route(tile: bool, dt, C: int, *vec: torch.Tensor) -> bool:
+    """True for the wgmma route; records the route of this launch."""
+    fast = not tile and _fast_path(dt, C, *vec)
+    conv_block_train.route = "wgmma" if fast else "tap3"
+    return fast
+
+
+def glu_pack(w2: torch.Tensor) -> torch.Tensor:
+    """w2 (3, Cin, 2C) [value | gate] as the GLU conv of F3 and B1 reads it:
+    K-major (3, 2C, Cin8) with ``[j, 2c, ci] = w2[j, ci, c]`` and ``[j, 2c +
+    1, ci] = w2[j, ci, C + c]``, so a wgmma accumulator thread, which holds
+    adjacent column pairs, holds both halves of its channels; the input
+    channels zero-padded to a multiple of 8. One copy."""
+    _, cin, c2 = w2.shape
+    v = w2.reshape(3, cin, 2, c2 // 2).permute(0, 3, 2, 1)  # (3, C, 2, Cin)
+    pad = -cin % 8
+    return (Fn.pad(v, (0, pad)) if pad else v.contiguous()).view(3, c2, cin + pad)
+
+
+_x_pad_last = [None]  # (weak reference to x, x's _version then, x's pad_channels copy)
+
+
+def x_padded(x: torch.Tensor) -> torch.Tensor:
+    """``pad_channels(x)``, as F1's conv and B3's K2 launch read x on the
+    wgmma route (block 0's 270 channels become 272). The last copy is kept
+    while the same tensor object has the same ``_version`` (B3 gets F1's x
+    back from autograd), so a block makes the copy once; inference tensors,
+    which keep no version, are copied every time."""
+    if x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    inference = x.is_inference()
+    last = _x_pad_last[0]
+    if last is not None and not inference and last[0]() is x and last[1] == x._version:
+        return last[2]
+    xp = pad_channels(x)
+    if not inference:
+        _x_pad_last[0] = (weakref.ref(x), x._version, xp)
+    return xp
+
+
+def _f1_launch(x, w0, b0, k, tile=False):
     B, T, Cin = x.shape
     C, dt, dev = w0.shape[2], x.dtype, x.device
     _check("F1", dt, dev, [(x, (B, T, Cin), dt), (w0, (3, Cin, C), dt), (b0, (C,), torch.float32)])
     if k > 0 and Cin != C:
         raise ValueError(f"block k={k} has a skip around conv0, so Cin must equal C ({Cin} != {C})")
     y0, s0 = _empty(dev, B, T, C, dtype=dt), _empty(dev, 2, C)
-    _run("f1", dt, [x, w0, b0, y0, _part(B, T, C, dev), s0], [B, T, Cin, C, dilations(k)[0], int(k > 0)], dev)
+    d0, skip = dilations(k)[0], int(k > 0)
+    if _route(tile, dt, C):
+        xp = x_padded(x)
+        _run("cbt_f1_wg", "F1", [xp, pack_weights(w0), b0, y0, _part(B, T, C, dev, "wgmma"), s0],
+             [B, T, xp.shape[2], C, d0, skip, _sms(dev)], dev)
+    else:
+        _run(f"cbt_f1_{_DTYPES[dt]}", "F1", [x, w0, b0, y0, _part(B, T, C, dev, "tap3"), s0],
+             [B, T, Cin, C, d0, skip], dev)
     return y0, s0
 
 
-def _f2_launch(y0, mi0, gb0, w1, b1, k):
+def _f2_launch(y0, mi0, gb0, w1, b1, k, tile=False):
     B, T, C = y0.shape
     dt, dev, f32 = y0.dtype, y0.device, torch.float32
     _check("F2", dt, dev, [(y0, (B, T, C), dt), (mi0, (2, C), f32), (gb0, (2, C), f32), (w1, (3, C, C), dt),
                            (b1, (C,), f32)])
     y1, s1 = _empty(dev, B, T, C, dtype=dt), _empty(dev, 2, C)
-    _run("f2", dt, [y0, mi0, gb0, w1, b1, y1, _part(B, T, C, dev), s1], [B, T, C, dilations(k)[1]], dev)
+    d1 = dilations(k)[1]
+    if _route(tile, dt, C, y0):
+        h0 = _empty(dev, B, T, C, dtype=dt)
+        _run("cbt_f2_wg", "F2", [y0, mi0, gb0, pack_weights(w1), b1, h0, y1, _part(B, T, C, dev, "wgmma"), s1],
+             [B, T, C, d1, _sms(dev)], dev)
+    else:
+        _run(f"cbt_f2_{_DTYPES[dt]}", "F2", [y0, mi0, gb0, w1, b1, y1, _part(B, T, C, dev, "tap3"), s1],
+             [B, T, C, d1], dev)
     return y1, s1
 
 
-def _f3_launch(y1, mi1, gb1, w2, b2):
+def _f3_launch(y1, mi1, gb1, w2, b2, tile=False):
     B, T, C = y1.shape
     dt, dev, f32 = y1.dtype, y1.device, torch.float32
     _check("F3", dt, dev, [(y1, (B, T, C), dt), (mi1, (2, C), f32), (gb1, (2, C), f32), (w2, (3, C, 2 * C), dt),
                            (b2, (2 * C,), f32)])
     out = _empty(dev, B, T, C, dtype=dt)
-    _run("f3", dt, [y1, mi1, gb1, w2, b2, out], [B, T, C], dev)
+    if _route(tile, dt, C, y1):
+        h1 = _empty(dev, B, T, C, dtype=dt)
+        _run("cbt_f3_wg", "F3", [y1, mi1, gb1, glu_pack(w2), b2, h1, out], [B, T, C, _sms(dev)], dev)
+    else:
+        _run(f"cbt_f3_{_DTYPES[dt]}", "F3", [y1, mi1, gb1, w2, b2, out], [B, T, C], dev)
     return out
 
 
@@ -248,22 +355,28 @@ def _f31_launch(y1, mi1, gb1, w2, b2, w0n, b0n, k_next):
     _check("F31", dt, dev, [(y1, (B, T, C), dt), (mi1, (2, C), f32), (gb1, (2, C), f32), (w2, (3, C, 2 * C), dt),
                             (b2, (2 * C,), f32), (w0n, (3, C, C), dt), (b0n, (C,), f32)])
     out, y0n, s0n = _empty(dev, B, T, C, dtype=dt), _empty(dev, B, T, C, dtype=dt), _empty(dev, 2, C)
-    _run("f31", dt, [y1, mi1, gb1, w2, b2, w0n, b0n, out, y0n, _part(B, T, C, dev), s0n], [B, T, C, d0n], dev)
+    _run(f"cbt_f31_{_DTYPES[dt]}", "F31", [y1, mi1, gb1, w2, b2, w0n, b0n, out, y0n, _part(B, T, C, dev, "tap3"), s0n],
+         [B, T, C, d0n], dev)
     return out, y0n, s0n
 
 
-def _b1_launch(dout, y1, mi1, gb1, w2, b2, w2t):
+def _b1_launch(dout, y1, mi1, gb1, w2, b2, w2t, tile=False):
     B, T, C = y1.shape
     dt, dev, f32 = y1.dtype, y1.device, torch.float32
     _check("B1", dt, dev, [(dout, (B, T, C), dt), (y1, (B, T, C), dt), (mi1, (2, C), f32), (gb1, (2, C), f32),
                            (w2, (3, C, 2 * C), dt), (b2, (2 * C,), f32), (w2t, (3, 2 * C, C), dt)])
     h1, dy2, du1 = _empty(dev, B, T, C, dtype=dt), _empty(dev, B, T, 2 * C, dtype=dt), _empty(dev, B, T, C, dtype=dt)
     db2, s = _empty(dev, 2 * C), _empty(dev, 2, C)
-    _run("b1", dt, [dout, y1, mi1, gb1, w2, b2, w2t, h1, dy2, du1, _part(B, T, C, dev), db2, s], [B, T, C], dev)
+    if _route(tile, dt, C, y1):
+        _run("cbt_b1_wg", "B1", [dout, y1, mi1, gb1, glu_pack(w2), b2, pack_weights(w2t), h1, dy2, du1,
+                                 _part(B, T, C, dev, "wgmma"), db2, s], [B, T, C, _sms(dev)], dev)
+    else:
+        _run(f"cbt_b1_{_DTYPES[dt]}", "B1", [dout, y1, mi1, gb1, w2, b2, w2t, h1, dy2, du1,
+                                             _part(B, T, C, dev, "tap3"), db2, s], [B, T, C], dev)
     return du1, s, tap_conv_dw(h1, dy2, 2), db2
 
 
-def _b2_launch(du1, y1, mi1, g1c, y0, mi0, gb0, w1t, k):
+def _b2_launch(du1, y1, mi1, g1c, y0, mi0, gb0, w1t, k, tile=False):
     B, T, C = y1.shape
     dt, dev, f32 = y1.dtype, y1.device, torch.float32
     _check("B2", dt, dev, [(du1, (B, T, C), dt), (y1, (B, T, C), dt), (mi1, (2, C), f32), (g1c, (3, C), f32),
@@ -271,12 +384,16 @@ def _b2_launch(du1, y1, mi1, g1c, y0, mi0, gb0, w1t, k):
     dy1, h0, du0 = (_empty(dev, B, T, C, dtype=dt) for _ in range(3))
     db1, s = _empty(dev, C), _empty(dev, 2, C)
     d1 = dilations(k)[1]
-    _run("b2", dt, [du1, y1, mi1, g1c, y0, mi0, gb0, w1t, dy1, h0, du0, _part(B, T, C, dev), db1, s], [B, T, C, d1],
-         dev)
+    if _route(tile, dt, C, du1, y1, y0):
+        _run("cbt_b2_wg", "B2", [du1, y1, mi1, g1c, y0, mi0, gb0, pack_weights(w1t), dy1, h0, du0,
+                                 _part(B, T, C, dev, "wgmma"), db1, s], [B, T, C, d1, _sms(dev)], dev)
+    else:
+        _run(f"cbt_b2_{_DTYPES[dt]}", "B2", [du1, y1, mi1, g1c, y0, mi0, gb0, w1t, dy1, h0, du0,
+                                             _part(B, T, C, dev, "tap3"), db1, s], [B, T, C, d1], dev)
     return du0, s, tap_conv_dw(h0, dy1, d1), db1
 
 
-def _b3_launch(du0, y0, mi0, g0c, x, w0t, k):
+def _b3_launch(du0, y0, mi0, g0c, x, w0t, k, tile=False):
     B, T, C = y0.shape
     Cin, dt, dev, f32 = x.shape[2], y0.dtype, y0.device, torch.float32
     _check("B3", dt, dev, [(du0, (B, T, C), dt), (y0, (B, T, C), dt), (mi0, (2, C), f32), (g0c, (3, C), f32),
@@ -284,8 +401,13 @@ def _b3_launch(du0, y0, mi0, g0c, x, w0t, k):
     if k > 0 and Cin != C:
         raise ValueError(f"block k={k} has a skip around conv0, so Cin must equal C ({Cin} != {C})")
     dy0, dx, db0 = _empty(dev, B, T, C, dtype=dt), _empty(dev, B, T, Cin, dtype=dt), _empty(dev, C)
-    d0 = dilations(k)[0]
-    _run("b3", dt, [du0, y0, mi0, g0c, w0t, dy0, dx, _part(B, T, C, dev), db0], [B, T, Cin, C, d0, int(k > 0)], dev)
+    d0, skip = dilations(k)[0], int(k > 0)
+    if _route(tile, dt, C, du0, y0):
+        _run("cbt_b3_wg", "B3", [du0, y0, mi0, g0c, pack_weights(w0t), dy0, dx, _part(B, T, C, dev, "wgmma"), db0],
+             [B, T, Cin, C, d0, skip, _sms(dev)], dev)
+        return dx, tap_conv_dw(x, dy0, d0, padded=x_padded(x)), db0
+    _run(f"cbt_b3_{_DTYPES[dt]}", "B3", [du0, y0, mi0, g0c, w0t, dy0, dx, _part(B, T, C, dev, "tap3"), db0],
+         [B, T, Cin, C, d0, skip], dev)
     return dx, tap_conv_dw(x, dy0, d0), db0
 
 
@@ -308,14 +430,15 @@ def _stage(name: str, launch, plain, kernel: str = "K6 stage"):
     return stage
 
 
-f1 = _stage("F1", _f1_launch, f1_plain)
-f2 = _stage("F2", _f2_launch, f2_plain)
-f3 = _stage("F3", _f3_launch, f3_plain)
-b1 = _stage("B1", _b1_launch, b1_plain)
-b2 = _stage("B2", _b2_launch, b2_plain)
-b3 = _stage("B3", _b3_launch, b3_plain)
-STAGES = {"F1": f1, "F2": f2, "F3": f3, "B1": b1, "B2": b2, "B3": b3}
+_LAUNCH = {"F1": _f1_launch, "F2": _f2_launch, "F3": _f3_launch, "B1": _b1_launch, "B2": _b2_launch,
+           "B3": _b3_launch}
 PLAIN = {"F1": f1_plain, "F2": f2_plain, "F3": f3_plain, "B1": b1_plain, "B2": b2_plain, "B3": b3_plain}
+STAGES = {st: _stage(st, _LAUNCH[st], PLAIN[st]) for st in _LAUNCH}
+f1, f2, f3, b1, b2, b3 = STAGES.values()
+# every stage on the tap3 route: K7's bitwise partners and the yardstick of the wgmma route
+TILE = {st: _stage(f"{st}_tile", functools.partial(_LAUNCH[st], tile=True), PLAIN[st], kernel="K6 stage on tap3")
+        for st in _LAUNCH}
+f3_tile, f1_tile = TILE["F3"], TILE["F1"]
 f31 = _stage("F31", _f31_launch, f31_plain, kernel="K7")
 
 
@@ -398,3 +521,6 @@ def conv_block_train(x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k: int,
     differentiable (JAX's aux outputs)."""
     out, m0, v0, m1, v1 = _ConvBlockTrain.apply(x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k, eps)
     return out, (m0, v0, m1, v1)
+
+
+conv_block_train.route = None  # the route of the last stage launched on the card: "wgmma" or "tap3"

@@ -126,7 +126,7 @@ def _splits(B: int, Cin: int, Cout: int, device: torch.device, dtype: torch.dtyp
     return max(1, min(B, n))
 
 
-def _launch(x: torch.Tensor, g: torch.Tensor, d: int) -> torch.Tensor:
+def _launch(x: torch.Tensor, g: torch.Tensor, d: int, padded=None) -> torch.Tensor:
     if x.dtype not in _DTYPES or g.dtype != x.dtype:
         raise TypeError(f"tap_conv_dw takes float32 or bfloat16 x and g of one dtype, got {x.dtype}, {g.dtype}")
     if not (g.is_cuda and g.device == x.device):
@@ -148,7 +148,7 @@ def _launch(x: torch.Tensor, g: torch.Tensor, d: int) -> torch.Tensor:
             err = _entry("tap_conv_dw", "tap_conv_dw_f32")(
                 x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, Cin, Cout, d, nsplit, stream)
         else:
-            xp, gp = pad_channels(x), pad_channels(g)
+            xp, gp = pad_channels(x) if padded is None else padded, pad_channels(g)
             err = _entry("tap_conv_dw", "tap_conv_dw_bf16")(
                 xp.data_ptr(), gp.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, Cin, Cout, xp.shape[2],
                 gp.shape[2], d, nsplit, stream)
@@ -157,15 +157,20 @@ def _launch(x: torch.Tensor, g: torch.Tensor, d: int) -> torch.Tensor:
     return out
 
 
-def tap_conv_dw(x: torch.Tensor, g: torch.Tensor, dilation: int) -> torch.Tensor:
+def tap_conv_dw(x: torch.Tensor, g: torch.Tensor, dilation: int, padded=None) -> torch.Tensor:
     """(3, Cin, Cout) f32 weight gradients of the dilated k=3 conv whose input
-    is x (B, T, Cin) and whose output cotangent is g (B, T, Cout)."""
+    is x (B, T, Cin) and whose output cotangent is g (B, T, Cout).
+    ``padded``: ``pad_channels(x)`` where the caller already holds it (the
+    bf16 body reads it in place of making its own copy)."""
     if x.dim() != 3 or g.dim() != 3 or x.shape[:2] != g.shape[:2]:
         raise ValueError(f"tap_conv_dw shapes: x (B, T, Cin), g (B, T, Cout); got {tuple(x.shape)}, {tuple(g.shape)}")
     if int(dilation) != dilation or dilation < 1:
         raise ValueError(f"tap_conv_dw needs an integer dilation >= 1, got {dilation}")
+    if padded is not None and (padded.shape[:2] != x.shape[:2] or padded.shape[2] != x.shape[2] + (-x.shape[2] % 8)
+                               or padded.dtype != x.dtype or not padded.is_contiguous() or padded.data_ptr() % 16):
+        raise ValueError(f"tap_conv_dw: padded must be pad_channels(x), got {tuple(padded.shape)} {padded.dtype}")
     if x.is_cuda:
-        return _launch(x, g, int(dilation))
+        return _launch(x, g, int(dilation), padded)
     if x.device.type != "cpu":
         raise ValueError(f"tap_conv_dw runs on CUDA or CPU tensors, got {x.device}")
     return tap_conv_dw_plain(x, g, int(dilation))

@@ -5,9 +5,16 @@ F3 of block k writes ``out`` to device memory and F1 of block k + 1 reads
 it back. K7 (``ops.conv_block_train.f31``) merges the two: a block keeps its
 window of ``out`` in shared memory for the next conv. ``out`` must still be
 written, since the backward reads it as block k + 1's input, so the merge
-saves one (B, T, C) read a boundary. This tool checks that the merged kernel
-equals the split pair (``out`` and ``y0n`` bitwise, the sums within rtol
-1e-6), then times both with CUDA events.
+saves one (B, T, C) read a boundary. K7 is built on the tap3 tile, so this
+tool checks that the merged kernel equals the tap3 pair (``f3_tile`` then
+``f1_tile``: ``out`` and ``y0n`` bitwise, the sums within rtol 1e-6) and
+that each half agrees with the stage the train path runs on the same
+inputs (in bf16 the wgmma route): ``out`` with ``f3``, ``y0n`` and the sums
+with ``f1`` on K7's own ``out`` (activations within atol 1e-2 + rtol 1e-2,
+the sums within 1e-3 of their largest entry). Chained, ``f1`` on ``f3``'s
+``out`` would carry each flipped rounding of ``out`` into ``y0n`` through
+the skip, where ``y0n`` can cancel to near zero. Then it times all three
+with CUDA events; the train path's pair is the yardstick.
 
 Port of the JAX package's ``tools/bench_cross_block_merge.py``: the same
 flagship shape (B, T, C = 64, 360, 320, block 1's conv0 dilation d0n = 4)
@@ -84,34 +91,52 @@ def run(device: Optional[str] = None) -> Dict:
     k_next = K_NEXT
     d0n = cbt.next_conv0_dilation(k_next)
 
-    def split():
-        out = cbt.f3(x["y1"], x["mi1"], x["gb1"], x["w2"], x["b2"])
-        y0n, s0n = cbt.f1(out, x["w0n"], x["b0n"], k_next)
+    def pair(f3, f1):
+        out = f3(x["y1"], x["mi1"], x["gb1"], x["w2"], x["b2"])
+        y0n, s0n = f1(out, x["w0n"], x["b0n"], k_next)
         return out, y0n, s0n
+
+    def split():  # the tap3 pair, K7's bitwise partner
+        return pair(cbt.f3_tile, cbt.f1_tile)
+
+    def train_pair():  # the pair the train path runs
+        return pair(cbt.f3, cbt.f1)
 
     def merged():
         return cbt.f31(x["y1"], x["mi1"], x["gb1"], x["w2"], x["b2"], x["w0n"], x["b0n"], k_next)
 
     (o_a, y_a, s_a), (o_b, y_b, s_b) = split(), merged()
     if not (torch.equal(o_a, o_b) and torch.equal(y_a, y_b)):
-        raise AssertionError("merged F31 differs from the split F3 + F1 in out or y0n")
+        raise AssertionError("merged F31 differs from the tap3 pair F3 + F1 in out or y0n")
     torch.testing.assert_close(s_b, s_a, rtol=1e-6, atol=0.0)
+    o_p = cbt.f3(x["y1"], x["mi1"], x["gb1"], x["w2"], x["b2"])
+    y_p, s_p = cbt.f1(o_b, x["w0n"], x["b0n"], k_next)  # on K7's own out
+    pair_route = cbt.conv_block_train.route if on_card else "plain"
+    vs_pair = 0.0
+    for a, b in ((o_b, o_p), (y_b, y_p), (s_b, s_p)):
+        atol, rtol = (1e-2, 1e-2) if a.dtype == torch.bfloat16 else (1e-3 * float(b.abs().max()), 1e-3)
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+        vs_pair = max(vs_pair, float((a.float() - b.float()).abs().max()))
     result = {"device": torch.cuda.get_device_name(dev) if on_card else "cpu", "shape": [B, T, C],
               "dtype": str(dt).replace("torch.", ""), "d0n": d0n, "k_next": k_next,
               "out_y0n_bitwise_equal": True, "s0n_bitwise_equal": bool(torch.equal(s_a, s_b)),
-              "s0n_max_abs_diff": float((s_a - s_b).abs().max())}
-    print("merged == split (out, y0n bitwise; s0n within rtol 1e-6)", flush=True)
+              "s0n_max_abs_diff": float((s_a - s_b).abs().max()), "pair_route": pair_route,
+              "vs_pair_max_abs_err": vs_pair}
+    print("merged == tap3 pair (out, y0n bitwise; s0n within rtol 1e-6); merged ~ the train path's stages",
+          flush=True)
     if not on_card:
         print("cpu: plain versions at a small size, equivalence only", flush=True)
         return result
-    t_split, t_merged = best_ms(split), best_ms(merged)
-    saving_us = (t_split - t_merged) * 1e3
-    result.update(split_ms=t_split, merged_ms=t_merged, saving_us_per_boundary=saving_us,
+    t_split, t_pair, t_merged = best_ms(split), best_ms(train_pair), best_ms(merged)
+    saving_us = (t_pair - t_merged) * 1e3
+    result.update(split_ms=t_split, pair_ms=t_pair, merged_ms=t_merged, saving_us_per_boundary=saving_us,
                   forward_boundaries_per_step=FORWARD_BOUNDARIES,
                   saving_us_per_step=FORWARD_BOUNDARIES * saving_us,
-                  timing="CUDA events; 20 warm-up calls, then the best of 3 rounds of 50")
-    print(f"split F3+F1 : {t_split:7.3f} ms", flush=True)
-    print(f"merged F31  : {t_merged:7.3f} ms  (saves {saving_us:+.1f} us a boundary)", flush=True)
+                  timing="CUDA events; 20 warm-up calls, then the best of 3 rounds of 50; savings against the "
+                         "train path's pair")
+    print(f"tap3 pair F3+F1  : {t_split:7.3f} ms", flush=True)
+    print(f"{pair_route} pair F3+F1 : {t_pair:7.3f} ms", flush=True)
+    print(f"merged F31       : {t_merged:7.3f} ms  (saves {saving_us:+.1f} us a boundary)", flush=True)
     print(f"extrapolated to the {FORWARD_BOUNDARIES} forward boundaries of a step: "
           f"{FORWARD_BOUNDARIES * saving_us:+.1f} us", flush=True)
     return result

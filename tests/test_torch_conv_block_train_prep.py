@@ -1,0 +1,201 @@
+"""The host-side preparation of K6's wgmma route (``ops.conv_block_train``),
+on CPU tensors at small widths: the GLU-interleaved K-major packing of w2
+(``glu_pack``) and its inverse, the 270 → 272-channel x that F1's conv and
+B3's K2 launch share (``x_padded``) and B3's 270-channel dx from packed w0ᵀ,
+the partial-sum scratch against each route's tile, the route rule, the tap3
+stages that stay K7's bitwise partner, and every ``_SIGNATURES`` list
+against its C declaration in ``csrc/conv_block_train.cu``. Convs here are
+the plain version (``tap_conv_plain``) on the prepared operands, sliced
+back, held against the plain version on the originals (f32, rtol and atol
+1e-5: sums of ~100 products of order 1)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import ctypes  # noqa: E402
+import os  # noqa: E402
+import re  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+from speech_decoding_tpu_torch.ops import _build  # noqa: E402
+from speech_decoding_tpu_torch.ops import conv_block_train as cbt  # noqa: E402
+from speech_decoding_tpu_torch.ops.tap_conv import (  # noqa: E402
+    flip_taps, pack_weights, pad_channels, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain,
+)
+
+torch.set_num_threads(1)
+
+DILATIONS = [1, 2, 4, 8, 16]  # every dilation of the flagship's k=3 convs
+T = 40
+
+
+def _rand(rng, *shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+
+def _glu_unpack(wk, cin):
+    """The inverse of glu_pack: (3, 2C, Cin8) -> w2 (3, Cin, 2C)."""
+    c2 = wk.shape[1]
+    return wk[..., :cin].reshape(3, c2 // 2, 2, cin).permute(0, 3, 2, 1).reshape(3, cin, c2)
+
+
+@pytest.mark.parametrize("cin,C", [(16, 8), (13, 10), (40, 24), (320, 320)])
+def test_glu_pack_layout_and_inverse(cin, C):
+    """Packed row 2c is channel c's value column, 2c + 1 its gate column;
+    the input channels are zero-padded to a multiple of 8; glu_unpack
+    undoes it bit for bit."""
+    w2 = _rand(np.random.default_rng(cin + C), 3, cin, 2 * C)
+    wk = cbt.glu_pack(w2)
+    cin8 = -(-cin // 8) * 8
+    assert wk.shape == (3, 2 * C, cin8) and wk.is_contiguous()
+    assert torch.equal(wk[:, 0::2, :cin], w2[:, :, :C].transpose(1, 2))
+    assert torch.equal(wk[:, 1::2, :cin], w2[:, :, C:].transpose(1, 2))
+    assert not wk[:, :, cin:].any()
+    assert torch.equal(_glu_unpack(wk, cin), w2)
+
+
+@pytest.mark.parametrize("d", [2, 16])
+@pytest.mark.parametrize("cin,C", [(16, 8), (13, 10)])
+def test_glu_conv_on_packed_weights(d, cin, C):
+    """The GLU conv as F3's and B1's body reads it: its output columns come
+    interleaved (value, gate) per channel; de-interleaved they are conv_2's
+    two halves, and F3's GLU of them is f3_plain's."""
+    rng = np.random.default_rng(d + cin)
+    h = _rand(rng, 2, T, cin)
+    w2 = 0.2 * _rand(rng, 3, cin, 2 * C)
+    want = tap_conv_plain(h, w2, d)
+    got = tap_conv_plain(pad_channels(h), cbt.glu_pack(w2).transpose(1, 2), d)
+    torch.testing.assert_close(got[..., 0::2], want[..., :C], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[..., 1::2], want[..., C:], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_x_padded_is_made_once_per_x(dtype):
+    """Block 0's 270-channel x becomes one 272-channel copy that F1 and B3's
+    K2 launch share: the same object for the same, unchanged x; a new copy
+    after an in-place write, for another x or for an inference tensor; x
+    itself when TMA can read it."""
+    x = _rand(np.random.default_rng(0), 2, 5, 270).to(dtype)
+    xp = cbt.x_padded(x)
+    assert xp.shape == (2, 5, 272) and torch.equal(xp[..., :270], x) and not xp[..., 270:].any()
+    assert cbt.x_padded(x) is xp
+    x.add_(1)
+    xq = cbt.x_padded(x)
+    assert xq is not xp and torch.equal(xq[..., :270], x)
+    other = x.clone()
+    assert cbt.x_padded(other) is not xq
+    aligned = torch.zeros(2, 5, 320, dtype=dtype)
+    assert cbt.x_padded(aligned) is aligned
+    with torch.inference_mode():
+        xi = torch.zeros(2, 5, 270, dtype=dtype)
+        first = cbt.x_padded(xi)
+        assert first.shape == (2, 5, 272) and cbt.x_padded(xi) is not first
+
+
+@pytest.mark.parametrize("d", DILATIONS)
+def test_block0_convs_on_the_272_channel_copy(d):
+    """Block 0 as the wgmma route runs it: F1's conv of the padded x with
+    w0 packed (3, C, 272), and B3's dx with w0ᵀ packed (3, 270, C) whose
+    270 outputs are kept, equal the plain convs of the originals."""
+    rng = np.random.default_rng(d)
+    cin, C = 270, 16
+    x = _rand(rng, 2, T, cin)
+    w0 = 0.05 * _rand(rng, 3, cin, C)
+    dy0 = _rand(rng, 2, T, C)
+    xp = cbt.x_padded(x)
+    y = tap_conv_plain(xp, pack_weights(w0).transpose(1, 2), d)
+    torch.testing.assert_close(y, tap_conv_plain(x, w0, d), rtol=1e-5, atol=1e-5)
+    w0t = flip_taps(w0)
+    wk = pack_weights(w0t)
+    assert wk.shape == (3, cin, C)
+    dx = tap_conv_plain(dy0, wk.transpose(1, 2), d)
+    assert dx.shape == (2, T, cin)
+    torch.testing.assert_close(dx, tap_conv_plain(dy0, w0t, d), rtol=1e-5, atol=1e-5)
+    # B3's K2 launch takes the same copy
+    torch.testing.assert_close(tap_conv_dw(x, dy0, d, padded=xp), tap_conv_dw_plain(x, dy0, d), rtol=0, atol=0)
+
+
+def test_tap_conv_dw_refuses_a_wrong_padded_x():
+    x, g = torch.zeros(2, 6, 270), torch.zeros(2, 6, 16)
+    for bad in (torch.zeros(2, 6, 270), torch.zeros(2, 6, 280), torch.zeros(2, 5, 272)):
+        with pytest.raises(ValueError, match="padded"):
+            tap_conv_dw(x, g, 2, padded=bad)
+
+
+def _c_constant(src: str, name: str) -> str:
+    m = re.search(r"constexpr int " + name + r" = ([^;]+);", src)
+    assert m, name
+    return m.group(1)
+
+
+def test_tiles_match_the_cuda_sources():
+    """_TM follows the tiles the kernels use: wg::TM = 64 * CONSUMERS rows on
+    the wgmma route, tap3's TM on the tap3 route (and the BN-backward pass)."""
+    with open(os.path.join(_build.SRC_DIR, "conv_block_train.cu")) as f:
+        wg = f.read().split("namespace wg {")[1].split("}  // namespace wg")[0]
+    with open(os.path.join(_build.SRC_DIR, "tap3.cuh")) as f:
+        tap3 = f.read()
+    consumers = int(_c_constant(wg, "CONSUMERS"))
+    assert _c_constant(wg, "TM") == "64 * CONSUMERS" and cbt._TM["wgmma"] == 64 * consumers
+    assert int(_c_constant(tap3, "TM")) == cbt._TM["tap3"]
+
+
+@pytest.mark.parametrize("route", ["wgmma", "tap3"])
+@pytest.mark.parametrize("B,T,C", [(64, 360, 320), (3, 37, 320), (1, 1, 8), (2, 193, 24), (5, 64, 16)])
+def test_partials_sizing(route, B, T, C):
+    """The scratch holds the conv's two sums for every (recording, time
+    tile) of the route's tile, and the BN-backward pass's one sum per
+    (recording, 64-row tile), which runs on both routes."""
+    n = cbt._part_elems(B, T, C, route)
+    conv = B * -(-T // cbt._TM[route]) * 2 * C
+    bn_bwd = B * -(-T // 64) * C
+    assert n == max(conv, bn_bwd)
+
+
+def test_fast_path_rule():
+    y = torch.zeros(2, 4, 16, dtype=torch.bfloat16)
+    assert cbt._fast_path(torch.bfloat16, 16, y)
+    assert not cbt._fast_path(torch.float32, 16, y.float())
+    assert not cbt._fast_path(torch.bfloat16, 12)
+    assert cbt._fast_path(torch.bfloat16, 2048) and not cbt._fast_path(torch.bfloat16, 2056)
+    flat = torch.zeros(2 * 4 * 16 + 1, dtype=torch.bfloat16)
+    assert not cbt._fast_path(torch.bfloat16, 16, flat[1:].view(2, 4, 16))
+
+
+@pytest.mark.parametrize("stage", list(cbt.STAGES))
+def test_tile_stages_take_the_plain_version_on_the_cpu(stage):
+    """The tap3 stages (TILE, K7's bitwise partners f3_tile and f1_tile) take
+    the plain version for CPU tensors, like the stages, and count nothing."""
+    ins = cbt.stage_inputs(2, 9, 16, 16, 1, torch.float32, "cpu", torch.Generator().manual_seed(1))[stage]
+    before = cbt.TILE[stage].launches
+    got, want = cbt.TILE[stage](*ins), cbt.PLAIN[stage](*ins)
+    for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+    assert cbt.TILE[stage].launches == before and cbt.conv_block_train.route is None
+    assert cbt.f3_tile is cbt.TILE["F3"] and cbt.f1_tile is cbt.TILE["F1"]
+
+
+def _c_entries():
+    """{entry name: [parameter types]} of csrc/conv_block_train.cu, the
+    ENTRIES macro expanded for f32 and bf16."""
+    with open(os.path.join(_build.SRC_DIR, "conv_block_train.cu")) as f:
+        src = f.read().replace("\\\n", "\n")
+    out = {}
+    for name, params in re.findall(r'extern "C" int ([\w#]+)\(([^)]*)\)', src):
+        types = [re.sub(r"\s+\w+$", "", p.strip()) for p in params.split(",")]
+        for suf in ("f32", "bf16") if name.endswith("##SUF") else ("",):
+            out[name.replace("##SUF", suf)] = types
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(cbt._SIGNATURES))
+def test_ctypes_signatures_match_the_c_entries(name):
+    """One c_void_p per pointer and one c_int per int of the C entry, in
+    order (a list one int short segfaulted the host once)."""
+    kind = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
+    entries = _c_entries()
+    assert name in entries, name
+    assert [kind[p] for p in entries[name]] == cbt._SIGNATURES[name], (name, entries[name])
+    assert sorted(entries) == sorted(cbt._SIGNATURES)

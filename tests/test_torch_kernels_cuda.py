@@ -633,17 +633,47 @@ def _k6_close(got, want, rel):
 
 @pytest.mark.parametrize("stage", list(cbt.STAGES))
 @pytest.mark.parametrize("k", range(5))
-@pytest.mark.parametrize("dtype,B,T", [(torch.bfloat16, 8, 360), (torch.float32, 2, 360), (torch.float32, 3, 37)])
+@pytest.mark.parametrize("dtype,B,T", [(torch.bfloat16, 8, 360), (torch.float32, 2, 360), (torch.float32, 3, 37),
+                                       (torch.bfloat16, 3, 37)])
 def test_conv_block_train_stage(dev, stage, k, dtype, B, T):
     """Each K6 stage against its plain version: k=0 (Cin=270, no skip) and
-    k=1..4 at C=320; T=37 puts d=16 past both edges of a tile."""
+    k=1..4 at C=320; T=37 puts d=16 past both edges of a tile. bf16 takes
+    the wgmma route, f32 the tap3 route."""
     args = cbt.stage_inputs(B, T, 270 if k == 0 else 320, 320, k, dtype, dev,
                             torch.Generator(device=dev).manual_seed(10 * k + B))[stage]
     fn = cbt.STAGES[stage]
     before = fn.launches
     got = fn(*args)
     assert fn.launches == before + 1
+    assert cbt.conv_block_train.route == ("wgmma" if dtype == torch.bfloat16 else "tap3")
     _k6_close(got, cbt.PLAIN[stage](*args), 1e-4 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.parametrize("stage", list(cbt.STAGES))
+@pytest.mark.parametrize("k", [0, 2])
+def test_conv_block_train_stage_on_tap3_in_bf16(dev, stage, k):
+    """The tap3 body in bf16 (TILE: K7's bitwise partner and the wgmma
+    route's yardstick) against the plain version."""
+    args = cbt.stage_inputs(8, 360, 270 if k == 0 else 320, 320, k, torch.bfloat16, dev,
+                            torch.Generator(device=dev).manual_seed(20 + k))[stage]
+    fn = cbt.TILE[stage]
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1 and cbt.conv_block_train.route == "tap3"
+    _k6_close(got, cbt.PLAIN[stage](*args), 1e-3)
+
+
+def test_conv_block_train_misaligned_activation_takes_tap3(dev):
+    """y1 whose base is not 16-byte aligned (the BN·GELU pass reads 16 bytes
+    at a time): F3 takes the tap3 route and still matches."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    args = list(cbt.stage_inputs(3, 37, 320, 320, 1, torch.bfloat16, dev, gen)["F3"])
+    y1 = args[0]
+    args[0] = torch.zeros(y1.numel() + 1, device=dev, dtype=y1.dtype)[1:].view(y1.shape).copy_(y1)
+    assert args[0].data_ptr() % 16
+    got = cbt.f3(*args)
+    assert cbt.conv_block_train.route == "tap3"
+    _k6_close(got, cbt.f3_plain(*args), 1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -651,6 +681,7 @@ def test_conv_block_train_stages_are_deterministic(dev, dtype):
     args = cbt.stage_inputs(8, 360, 320, 320, 2, dtype, dev, torch.Generator(device=dev).manual_seed(3))
     for stage, fn in cbt.STAGES.items():
         a, b = fn(*args[stage]), fn(*args[stage])
+        assert cbt.conv_block_train.route == ("wgmma" if dtype == torch.bfloat16 else "tap3")
         torch.cuda.synchronize()
         for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x, y), stage
@@ -694,19 +725,24 @@ def _f31_inputs(B, T, k_next, dtype, dev, seed):
                                        (torch.bfloat16, 3, 37)])
 def test_f31_kernel(dev, k_next, dtype, B, T):
     """K7 against its plain version (out and y0n as activations, s0n at 1e-4
-    (f32) or 1e-3 (bf16) of its largest entry) and against the split K6
-    kernels F3 then F1: out and y0n bitwise, s0n within rtol 1e-6. T=37 with
-    d0n=16 (k_next=2) puts the window past both edges of the recording."""
+    (f32) or 1e-3 (bf16) of its largest entry), against the tap3 pair
+    f3_tile then f1_tile: out and y0n bitwise, s0n within rtol 1e-6, and
+    each half against the stage on the same inputs (the wgmma route in bf16)
+    at the plain version's tolerances: out against F3, y0n and s0n against
+    F1 on K7's own out. T=37 with d0n=16 (k_next=2) puts the window past
+    both edges of the recording."""
     args = _f31_inputs(B, T, k_next, dtype, dev, 7 * k_next + B)
     before = cbt.f31.launches
     out, y0n, s0n = cbt.f31(*args)
     assert cbt.f31.launches == before + 1
-    _k6_close((out, y0n, s0n), cbt.f31_plain(*args), 1e-4 if dtype == torch.float32 else 1e-3)
-    o_split = cbt.f3(*args[:5])
-    y_split, s_split = cbt.f1(o_split, args[5], args[6], k_next)
+    rel = 1e-4 if dtype == torch.float32 else 1e-3
+    _k6_close((out, y0n, s0n), cbt.f31_plain(*args), rel)
+    o_split = cbt.f3_tile(*args[:5])
+    y_split, s_split = cbt.f1_tile(o_split, args[5], args[6], k_next)
     torch.cuda.synchronize()
     assert torch.equal(out, o_split) and torch.equal(y0n, y_split)
     torch.testing.assert_close(s0n, s_split, rtol=1e-6, atol=0.0)
+    _k6_close((out, y0n, s0n), (cbt.f3(*args[:5]), *cbt.f1(out, args[5], args[6], k_next)), rel)
 
 
 def test_f31_is_deterministic_and_rejects(dev):
