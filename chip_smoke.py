@@ -43,8 +43,11 @@ What it does, in order (one JSON object per line on stdout):
      plain similarity has an entry within 1e-6 of the diagonal (those rows
      are listed);
   4. K4 ``conv_block_fused`` against its plain version for blocks k=0..4 at
-     (64, 360, D) in bf16, in f32 at a smaller batch, and at a ragged shape
-     where every dilation reaches both edges of the recording;
+     (64, 360, D) in bf16 (the ``wgmma`` route, asserted: three launches of
+     K6's conv body, ``csrc/conv_wg.cuh``), in f32 at a smaller batch (the
+     CUDA-core body), and at ragged shapes in both where every dilation
+     reaches both edges of the recording; two runs of each must give the
+     same bits;
   4b. each of K6's six stages (``ops.conv_block_train`` F1, F2, F3, B1, B2,
      B3) against its plain version: blocks k=0..4 at (64, 360, 320) in bf16,
      f32 at B=4, ragged B=3, T=37 where d=16 reaches both edges (k=2, 4);
@@ -70,7 +73,8 @@ What it does, in order (one JSON object per line on stdout):
      to 0 just before and read just after; K1 and K4 must have launched;
   7. timings with CUDA events (kernel, plain version, one PyTorch call where
      one exists, the bound for this card; K1 with and without its weight
-     pack, and the decode's pack count, which must be 0), the fused vs module encode with
+     pack, and the decode's pack count, which must be 0; K4 beside the
+     module eval ConvBlock on the same input), the fused vs module encode with
      the input on the card, retrieval against each bank, and one whole
      decode on the host clock; kernel launches per decode;
   8. one train step at full width in f32 (B=8), on the card and on the CPU
@@ -102,7 +106,8 @@ What it does, in order (one JSON object per line on stdout):
      K5, K6 and K3 each by CUDA events and on the device alone (kernel
      durations summed from ``torch.profiler``) with the share of the bound;
      K1's forward (beside the wmma body, the flagship's route before the
-     wgmma body, and ``torch.bmm``) and K4 on the device alone, taken only
+     wgmma body, and ``torch.bmm``) and K4 (beside the module eval
+     ConvBlock stack) on the device alone, taken only
      here because a profiler trace slows every later launch on the host; K6
      per block (each stage by events and on the device, F1+F2+F3 and
      B1+B2+B3 beside the module ``ConvBlock`` forward and backward, and the
@@ -582,30 +587,46 @@ def main() -> int:
     staged16 = prepare_fused_stack(enc16.conv_blocks, bf16)
     staged32 = prepare_fused_stack(enc32.conv_blocks, f32)
 
+    # bf16 on the wgmma route (three conv_wg launches a block, one count):
+    # h0, h1 and the output round to bf16, so a flipped rounding is one ulp
+    # (1e-2 + 1e-2 relative); two runs on the same inputs must give the same
+    # bits. f32 on the CUDA-core body: sums in another order (1e-4)
     k4_err = {}
+
+    def k4_check(name, x, staged, k, want_route, tol):
+        got = conv_block_fused(x, *staged, k=k)
+        route = conv_block_fused.route
+        again = conv_block_fused(x, *staged, k=k)
+        torch.cuda.synchronize()
+        if route != want_route or not torch.equal(got, again):
+            raise AssertionError(f"{name}: route {route} (want {want_route}), bitwise repeat {torch.equal(got, again)}")
+        k4_err[name] = compare(name, got, conv_block_plain(x, *staged, k=k), tol, tol, route=route,
+                               bitwise_repeat=True)
+
     for k in range(5):
         cin = D1 if k == 0 else D2
         x = torch.randn(B, T, cin, generator=gen).to(dev, bf16)
-        name = f"K4 k={k} bf16 {(B, T, cin)}"
-        k4_err[name] = compare(name, conv_block_fused(x, *staged16[k], k=k),
-                               conv_block_plain(x, *staged16[k], k=k), 1e-2, 1e-2)
+        k4_check(f"K4 k={k} bf16 {(B, T, cin)}", x, staged16[k], k, "wgmma", 1e-2)
         x = torch.randn(4, T, cin, generator=gen).to(dev, f32)
-        name = f"K4 k={k} f32 {(4, T, cin)}"
-        k4_err[name] = compare(name, conv_block_fused(x, *staged32[k], k=k),
-                               conv_block_plain(x, *staged32[k], k=k), 1e-4, 1e-4)
+        k4_check(f"K4 k={k} f32 {(4, T, cin)}", x, staged32[k], k, "f32", 1e-4)
     # ragged: D2 not a multiple of the 128-channel tile, Cin not of the
-    # 32-deep chunk, T shorter than the widest halo (every dilation hits an edge)
+    # 32-deep chunk, T shorter than the widest halo (every dilation hits an
+    # edge); bf16: T under one 192-row tile, Cin=40 and D2=48 under one
+    # 64-channel chunk and one 160-column tile (inputs from their own
+    # generator, so every later input is the parent's)
     small = BrainEncoder(num_subjects=2, loc=loc, D1=40, D2=48, F=16, K=4,
                          generator=torch.Generator().manual_seed(args.seed + 1))
     random_bn_stats(small, gen)
     small.to(dev)
     staged_small = prepare_fused_stack(small.conv_blocks, f32)
+    staged_small16 = prepare_fused_stack(small.conv_blocks, bf16)
+    g_ragged = torch.Generator().manual_seed(args.seed + 7)
     for k in range(5):
         for t_ in (37, 13):
             x = torch.randn(3, t_, 40 if k == 0 else 48, generator=gen).to(dev)
-            name = f"K4 k={k} f32 ragged {tuple(x.shape)}"
-            compare(name, conv_block_fused(x, *staged_small[k], k=k),
-                    conv_block_plain(x, *staged_small[k], k=k), 1e-4, 1e-4)
+            k4_check(f"K4 k={k} f32 ragged {tuple(x.shape)}", x, staged_small[k], k, "f32", 1e-4)
+            x = torch.randn(3, t_, 40 if k == 0 else 48, generator=g_ragged).to(dev, bf16)
+            k4_check(f"K4 k={k} bf16 ragged {tuple(x.shape)}", x, staged_small16[k], k, "wgmma", 1e-2)
 
     # -- 4b. K6 stages vs plain ------------------------------------------------
     # activations in bf16: a flipped rounding (1e-2 + 1e-2 relative); f32
@@ -842,23 +863,29 @@ def main() -> int:
          library="torch.bmm over W[sidx] (the gather included)", bound_ms=k1_bound, bound_by=k1_by,
          launches_per_decode=per_decode["subject_matmul"], packs_per_decode=packs_per_decode)
 
-    k4 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    # K4 by CUDA events (the wrapper's host time and block 0's 272-channel
+    # copy of x included), its plain version, and the module eval ConvBlock
+    # (cuBLAS convs) on the same x as its yardstick; device times in phase 11
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "module_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     for k in range(5):
         cin = D1 if k == 0 else D2
         x = torch.randn(B, T, cin, generator=gen).to(dev, bf16)
-        args_k = staged16[k]
+        args_k, blk = staged16[k], enc16.conv_blocks[k]
         ms = time_ms(lambda: conv_block_fused(x, *args_k, k=k), reps=10)
         plain = time_ms(lambda: conv_block_plain(x, *args_k, k=k), reps=5)
+        with torch.inference_mode():
+            module_ms = time_ms(lambda: blk(x), reps=10)
         flops = 2 * B * T * 3 * (cin * D2 + D2 * D2 + D2 * 2 * D2)
         moved = nbytes(x, *args_k) + B * T * D2 * 2
         bnd, by = bound_ms(flops, moved, peaks, "bf16")
-        emit(timing=f"K4 conv_block_fused k={k}", shape=[B, T, cin, D2], dtype="bf16", kernel_ms=ms,
-             plain_ms=plain, library_ms=None,
-             library="none: no single PyTorch call computes a ConvBlock",
+        emit(timing=f"K4 conv_block_fused k={k}", shape=[B, T, cin, D2], dtype="bf16", route=conv_block_fused.route,
+             kernel_ms=ms, plain_ms=plain, module_block_ms=module_ms, library_ms=None,
+             library="none: no single PyTorch call computes a ConvBlock; the module eval ConvBlock is beside it",
              bound_ms=bnd, bound_by=by, gflop=flops / 1e9, mbytes=moved / 1e6,
              launches_per_decode=per_decode["conv_block_fused"] / 5)
         k4["ms"] += ms
         k4["plain_ms"] += plain
+        k4["module_ms"] += module_ms
         k4["bound_ms"] += bnd
         k4["flops"] += flops
         k4["bytes"] += moved
@@ -1124,13 +1151,20 @@ def main() -> int:
          library_device_ms=k1_lib_dev or "not measured", wmma_body_device_ms=k1_wmma_dev or "not measured",
          wmma_body="the flagship's route before the wgmma body, called directly on the same inputs",
          bound_ms=k1_bound, bound_by=k1_by)
-    k4_dev = []
+    k4_dev, k4_mod_dev = [], []
     for k in range(5):
         x = torch.randn(B, T, D1 if k == 0 else D2, generator=gen).to(dev, bf16)
+        blk = enc16.conv_blocks[k]
         k4_dev.append(device_ms(lambda: conv_block_fused(x, *staged16[k], k=k)))
+        with torch.inference_mode():
+            k4_mod_dev.append(device_ms(lambda: blk(x)))
     k4["device_ms"] = sum(k4_dev) if all(k4_dev) else None
+    k4["module_device_ms"] = sum(k4_mod_dev) if all(k4_mod_dev) else None
     emit(timing="K4 conv_block_fused on the device, blocks k=0..4", shape=[B, T, D1, D2], dtype="bf16",
-         device_ms=k4_dev, total_device_ms=k4["device_ms"] or "not measured")
+         route=conv_block_fused.route, device_ms=k4_dev, total_device_ms=k4["device_ms"] or "not measured",
+         device_pct_of_bound=100 * k4["bound_ms"] / k4["device_ms"] if k4["device_ms"] else "not measured",
+         module_blocks_device_ms=k4_mod_dev, module_total_device_ms=k4["module_device_ms"] or "not measured",
+         bound_ms=k4["bound_ms"], bound_by=k4_by)
     del x, w, gy, wT, wmma_out, k1_args
 
     # kernel_ms by CUDA events around back-to-back wrapper calls; device_ms the
@@ -1585,9 +1619,13 @@ def main() -> int:
          "replaces": "speech_decoding_tpu/ops/pallas/conv_block.py:92",
          "launches": launches_of("conv_block_fused"),
          "launches_by_path": {k: p["conv_block_fused"] for k, p in paths.items()},
+         "header": "speech_decoding_tpu_torch/csrc/conv_wg.cuh", "body": "wgmma",
          "max_abs_err": max(k4_err.values()),
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4_by,
-         "library_ms": None, "device_ms": k4["device_ms"] or "not measured", "timed": "the five blocks of one decode"},
+         "library_ms": None, "device_ms": k4["device_ms"] or "not measured",
+         "module_blocks_ms": k4["module_ms"], "module_blocks_device_ms": k4["module_device_ms"] or "not measured",
+         "library": "none: no single PyTorch call computes a ConvBlock; the module eval ConvBlock is its yardstick",
+         "timed": "the five blocks of one decode"},
         {"name": "tap_conv_dw", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/tap_conv_dw.cu",
          "replaces": "speech_decoding_tpu/ops/pallas/tap_conv.py:144",
@@ -1621,7 +1659,8 @@ def main() -> int:
          "library_ms": k5["library_ms"], "device_ms": k5["device_ms"], "timed": "the 30 launches of one pallas_taps step"},
         {"name": "conv_block_train", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/conv_block_train.cu",
-         "header": "speech_decoding_tpu_torch/csrc/hopper.cuh (bf16), speech_decoding_tpu_torch/csrc/tap3.cuh (f32)",
+         "header": "speech_decoding_tpu_torch/csrc/conv_wg.cuh on hopper.cuh (bf16), "
+                   "speech_decoding_tpu_torch/csrc/tap3.cuh (f32)",
          "body": "wgmma", "tap3_route_device_ms": k6["tap3_device_ms"] or "not measured",
          "replaces": "speech_decoding_tpu/ops/pallas/conv_block_train.py:334",
          "also_replaces": "speech_decoding_tpu/ops/pallas/conv_block_train.py:409",

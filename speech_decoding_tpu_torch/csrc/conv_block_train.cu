@@ -19,9 +19,10 @@
 // atomics. Every conv runs one of two bodies, with the same per-element
 // epilogues (the functors F1 .. B3c below, so the rounding points are the
 // same on both):
-//   * bf16 (cbt_*_wg): the persistent TMA + mbarrier + wgmma implicit GEMM
-//     of K5 (tap_conv.cu, on hopper.cuh) with a 192-time x 160-column tile,
-//     templated on the epilogue, which works on the accumulator fragments
+//   * bf16 (cbt_*_wg): conv_wg (conv_wg.cuh, shared with K4), the
+//     persistent TMA + mbarrier + wgmma implicit GEMM of K5 (tap_conv.cu, on
+//     hopper.cuh) with a 192-time x 160-column tile, templated on the
+//     epilogue, which works on the accumulator fragments
 //     (a warp wholly inside the output runs the light epilogues without a
 //     guard, so their loads overlap). TMA lands the conv's input in
 //     swizzled shared memory untouched, so the BN·GELU of F2, F3 and B1 is
@@ -86,6 +87,7 @@
 // B * ceil(T / TM) * 2 * C elements for the conv tile's TM (64 on tap3, 192
 // on wgmma), and at least B * ceil(T / 64) * C (the BN-backward pass's).
 
+#include "conv_wg.cuh"
 #include "hopper.cuh"
 #include "tap3.cuh"
 
@@ -230,12 +232,6 @@ int bn_bwd(const BnBwd<T>& a, int B, cudaStream_t stream) {
   bn_bwd_kernel<T><<<dim3((a.C + TN - 1) / TN, a.ntile, B), tap3::THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
-
-#define CHECK(expr)                 \
-  do {                              \
-    const int e_ = (expr);          \
-    if (e_ != 0) return e_;         \
-  } while (0)
 
 template <typename T>
 int f1(const void* x, const void* w0, const void* b0, void* y0, float* part, float* s0, int B, int Tlen, int Cin,
@@ -422,194 +418,7 @@ int f31(const void* y1, const void* mi1, const void* gb1, const void* w2, const 
   return tap3::reduce(part, s0n, B * g1.ntile, 2 * C, st);
 }
 
-// ---- the bf16 route: K5's wgmma body with K6's epilogues ------------------------
-
-namespace wg {
-constexpr int CONSUMERS = 3;          // consumer warpgroups, 64 times each (K5's shape)
-constexpr int TM = 64 * CONSUMERS;    // times a tile
-constexpr int TN = 160;               // packed output columns a tile (wgmma n)
-constexpr int STAGES = 4;
-constexpr int ABOX = TM * 128;        // the input: TM rows of 64 channels, 128-byte swizzled
-constexpr int BBOX = TN * 128;        // W_j: 160 packed output rows of 64 input channels
-constexpr int STAGE = ABOX + BBOX;
-constexpr int WARPS = 4 * CONSUMERS;
-constexpr int THREADS = CONSUMERS * 128 + 32;  // the consumer warpgroups, then one producer warp
-constexpr int RED = WARPS * 2 * TN;   // floats: every consumer warp's two sums of every column
-constexpr size_t SMEM = (size_t)STAGES * STAGE + 2 * RED * sizeof(float) + 2 * STAGES * sizeof(uint64_t) + 1024;
-
-inline int t_tiles(int Tlen) { return (Tlen + TM - 1) / TM; }
-}  // namespace wg
-
-// a barrier of the consumer warpgroups alone (the producer runs ahead)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(wg::CONSUMERS * 128) : "memory");
-}
-
-// The epilogue of one thread's accumulator fragment: every (row, channel)
-// it holds through epi (GUARD: only those inside the output), and with
-// Epi::kStats the warp's per-channel sums into r[(2 * warp + {0, 1}) * TN +
-// channel in the tile]: each thread adds its own two rows, the 8 lanes that
-// share a channel add theirs with shuffles in a fixed tree.
-template <bool GUARD, int NG, class Epi>
-__device__ __forceinline__ void epilogue(const Epi& epi, const float (&acc)[wg::TN / 2], float* r, int warp, int lane,
-                                         int b, int t_lo, int ch0, int Tlen, int Cout) {
-#pragma unroll
-  for (int c = 0; c < wg::TN / 8; ++c) {
-#pragma unroll
-    for (int e = 0; e < 2 / NG; ++e) {
-      const int lc = (8 * c + 2 * (lane % 4) + e) / NG, ch = ch0 + lc;
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int t = t_lo + 8 * half;
-        if (!GUARD || (t < Tlen && ch < Cout))
-          epi(b, t, ch, acc[4 * c + 2 * half + e], acc[4 * c + 2 * half + 1], s0, s1);
-      }
-      if constexpr (Epi::kStats) {
-#pragma unroll
-        for (int o = 4; o < 32; o *= 2) {
-          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-        }
-        if (lane < 4) {
-          r[(2 * warp) * wg::TN + lc] = s0;
-          r[(2 * warp + 1) * wg::TN + lc] = s1;
-        }
-      }
-    }
-  }
-}
-
-// The dilated three-tap conv of x (B, T, cin_ld) with the K-major weights wk
-// (3, NG * Cout, cin_ld), every output through epi. K5's kernel
-// (tap_conv.cu): persistent blocks walk the (co tile, time tile, recording)
-// tiles, one producer thread keeps a four-stage ring of TMA loads of (tap j,
-// 64-channel chunk), three consumer warpgroups run wgmma m64n160k16 into one
-// f32 accumulator. NG = 1: packed column n is channel n. NG = 2 (the GLU
-// conv): packed columns 2c and 2c + 1 are channel c's value and gate, so a
-// tile of 160 packed columns is 80 channels, and the register pair that
-// holds a thread's two adjacent columns holds both halves of one channel.
-// Sums (Epi::kStats): each thread adds its own two rows of a column, the 8
-// lanes of a warp that share the column add theirs with shuffles in a fixed
-// tree, the 12 warps' sums go through shared memory (double-buffered across
-// tiles) and are added in warp order into the tile's slot of `part`,
-// part[(b * t_tiles + time tile) * 2 * Cout + {0, Cout} + c].
-template <int NG, class Epi>
-__global__ void __launch_bounds__(wg::THREADS, 1)
-conv_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap, const Epi epi,
-               float* __restrict__ part, int Tlen, int Cout, int d, int chunks, int co_tiles, int t_tiles,
-               int tiles) {
-  // local names: TM and TN at namespace scope are tap3's
-  constexpr int TM = wg::TM, TN = wg::TN, STAGES = wg::STAGES, ABOX = wg::ABOX, STAGE = wg::STAGE,
-                WARPS = wg::WARPS, CONSUMERS = wg::CONSUMERS, RED = wg::RED;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
-  float* red = reinterpret_cast<float*>(smem + (size_t)STAGES * STAGE);
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * RED);
-  uint64_t* empty = full + STAGES;
-  const int steps = 3 * chunks;
-  const int wg_ = threadIdx.x / 128;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES; ++i) {
-      hopper::mbar_init(&full[i], 1);
-      hopper::mbar_init(&empty[i], WARPS);
-    }
-    hopper::mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (wg_ == CONSUMERS) {  // producer warp: one thread issues every load
-    if (threadIdx.x == CONSUMERS * 128) {
-      int k = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int co0 = tile % co_tiles * TN, t0 = tile / co_tiles % t_tiles * TM, b = tile / (co_tiles * t_tiles);
-        for (int s = 0; s < steps; ++s, ++k) {
-          const int st = k % STAGES, j = s / chunks, c = s % chunks;
-          if (k >= STAGES) hopper::mbar_wait(&empty[st], (k / STAGES - 1) & 1);
-          unsigned char* stage = smem + (size_t)st * STAGE;
-          hopper::mbar_arrive_expect(&full[st], STAGE);
-          hopper::tma_load_3d(stage, &xmap, &full[st], 64 * c, t0 + (j - 1) * d, b);
-          hopper::tma_load_3d(stage + ABOX, &wmap, &full[st], 64 * c, co0, j);
-        }
-      }
-    }
-    return;
-  }
-
-  // accumulator fragment: warp w holds rows 16w .. 16w + 15; register 4c + e
-  // is row lane / 4 (+ 8 for e >= 2), column 8c + 2 (lane % 4) + e % 2
-  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, warp = 4 * wg_ + w;
-  constexpr int COLS = TN / NG;  // output channels a tile
-  float acc[TN / 2];
-  int k = 0, it = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
-    const int co0 = tile % co_tiles * TN, tt = tile / co_tiles % t_tiles, b = tile / (co_tiles * t_tiles);
-#pragma unroll
-    for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
-    for (int s = 0; s < steps; ++s, ++k) {
-      const int st = k % STAGES;
-      hopper::mbar_wait(&full[st], (k / STAGES) & 1);
-      const unsigned char* a_t = smem + (size_t)st * STAGE + wg_ * 64 * 128;  // this warpgroup's 64 rows
-      const unsigned char* b_t = smem + (size_t)st * STAGE + ABOX;
-      hopper::fence_regs(acc);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t da = hopper::desc_sw128(a_t + kk * 32, 16, 1024);
-        const uint64_t db = hopper::desc_sw128(b_t + kk * 32, 16, 1024);
-        hopper::wgmma_m64n160k16<0, 0>(acc, da, db);
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(acc);
-      if (lane == 0) hopper::mbar_arrive(&empty[st]);
-    }
-
-    const int ch0 = co0 / NG, t_lo = tt * TM + 64 * wg_ + 16 * w + lane / 4;
-    float* r = red + (it & 1) * RED;
-    // a warp whose 16 rows and every channel lie inside the output runs a
-    // light epilogue without a guard, so its loads can be issued together
-    // (the test is warp-uniform: both paths hold full-warp shuffles); the
-    // GELU backward's, unguarded, spills and runs slower
-    if (Epi::kUnguarded && tt * TM + 64 * wg_ + 16 * w + 15 < Tlen && ch0 + COLS <= Cout)
-      epilogue<false, NG>(epi, acc, r, warp, lane, b, t_lo, ch0, Tlen, Cout);
-    else
-      epilogue<true, NG>(epi, acc, r, warp, lane, b, t_lo, ch0, Tlen, Cout);
-    if constexpr (Epi::kStats) {
-      consumers_sync();
-      for (int i = threadIdx.x; i < 2 * COLS; i += CONSUMERS * 128) {
-        const int s = i / COLS, lc = i % COLS;
-        if (ch0 + lc < Cout) {
-          float v = 0.f;
-          for (int q = 0; q < WARPS; ++q) v += r[(2 * q + s) * TN + lc];
-          part[((size_t)b * t_tiles + tt) * 2 * Cout + (size_t)s * Cout + ch0 + lc] = v;
-        }
-      }
-    }
-  }
-}
-
-// x (B, T, cin_ld) bf16, channels zero-padded to cin_ld (a multiple of 8),
-// and wk (3, NG * Cout, cin_ld), both 16-byte aligned; sms: one persistent
-// block each
-template <int NG, class Epi>
-int conv_wg(const void* x, int cin_ld, const void* wk, const Epi& epi, float* part, int B, int Tlen, int Cout, int d,
-            int sms, cudaStream_t st) {
-  if ((long long)B * Tlen == 0 || Cout == 0) return (int)cudaSuccess;
-  CUtensorMap xmap, wmap;
-  if (!hopper::make_map_bf16(&xmap, x, cin_ld, Tlen, B, wg::TM) ||
-      !hopper::make_map_bf16(&wmap, wk, cin_ld, NG * Cout, 3, wg::TN))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = conv_wg_kernel<NG, Epi>;
-  CHECK((int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wg::SMEM));
-  const int co_tiles = (NG * Cout + wg::TN - 1) / wg::TN, t_tiles = wg::t_tiles(Tlen);
-  const long long tiles = (long long)co_tiles * t_tiles * B;
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  kernel<<<grid, wg::THREADS, wg::SMEM, st>>>(xmap, wmap, epi, part, Tlen, Cout, d, (cin_ld + 63) / 64, co_tiles,
-                                              t_tiles, (int)tiles);
-  return (int)cudaGetLastError();
-}
+// ---- the bf16 route: conv_wg (conv_wg.cuh) with K6's epilogues ------------------
 
 // h = GELU(BN(y)) in bf16 (C % 8 == 0, bases 16-byte aligned): the conv
 // input of F2 (h0), F3 and B1 (h1), with the values tap3's BnGelu prologue
@@ -821,7 +630,7 @@ int b3_wg(const void* du0, const void* y0, const void* mi0, const void* g0c, con
 ENTRIES(f32, float)
 ENTRIES(bf16, bf16)
 
-// The bf16 route on wgmma (csrc/hopper.cuh). Every conv input and packed
+// The bf16 route on wgmma (csrc/conv_wg.cuh). Every conv input and packed
 // weight 16-byte aligned, C % 8 == 0, y0 and y1 16-byte aligned (the BN·GELU
 // pass reads them 16 bytes at a time). xp (B, T, cin_ld): x with its
 // channels zero-padded to cin_ld; K-major weights (wk[j, n, ci] = W_j[ci,

@@ -1,21 +1,36 @@
-"""A fully fused eval-mode ConvBlock.
+"""The eval-mode ConvBlock (K4).
 
-Port of ``speech_decoding_tpu/ops/pallas/conv_block.py`` (K4). The encoder's
+Port of ``speech_decoding_tpu/ops/pallas/conv_block.py``. The encoder's
 hot stack is five blocks of [dilated conv k=3 (+skip) -> BN -> GELU ->
 dilated conv (+skip) -> BN -> GELU -> dilated conv -> GLU]
 [ref: speech_decoding/models.py:120-166]. In eval mode BatchNorm is a
 per-channel affine folded from the running statistics, so the whole block is
-local compute; the CUDA kernel (``csrc/conv_block.cu``) runs it in one launch
-per block, with the intermediates in shared memory (see the source for the
-halo-recompute design), so the only device-memory traffic is the block's
-input, its output and its weights. bf16 runs on the tensor cores (and needs
-D2 % 16 == 0), f32 on the CUDA cores. ``prepare_fused_stack`` stages the
-weights once in the layout the kernel reads (``stage_weight``).
+local compute. The CUDA kernels (``csrc/conv_block.cu``) take one of two
+routes, by dtype (``conv_block_fused.route`` records the last one):
 
-``conv_block_fused`` launches the kernel for CUDA tensors and uses
-``conv_block_plain`` — a step-by-step copy of the Pallas ``_block_kernel``,
-batched over rows — for CPU tensors; it never falls back on the card.
-Used by the serving encode (``inference.SpeechDecoder``).
+  * ``"wgmma"`` (bf16, D2 % 8 == 0): three launches of K6's TMA-fed
+    ``wgmma`` conv body (``csrc/conv_wg.cuh``), one a conv, each with an
+    epilogue of K4's own (folded BN and GELU into h0 and h1, then the GLU
+    into the output). x reaches conv0 with its channels zero-padded to a
+    multiple of 8 (``tap_conv.pad_channels``: block 0's 270 become 272); h0
+    and h1 are scratch of the call. A bf16 input outside the rule raises.
+  * ``"f32"``: one launch on the CUDA cores, the intermediates in shared
+    memory with a recomputed halo.
+
+``prepare_fused_stack`` stages each block's weights once in the layout its
+route reads (``stage_weight``): f32 (3, Cin, Cout) as the reference holds
+them; bf16 the K-major images ``[j, n, ci]`` of the wgmma body, conv0's and
+conv1's through ``tap_conv.pack_weights`` (the input depth zero-padded to a
+multiple of 8, ``conv0_depth``), conv2's through
+``conv_block_train.glu_pack`` (each channel's value and gate side by side).
+``conv_block_plain``, a step-by-step copy of the Pallas ``_block_kernel``
+batched over rows, reads either layout (``plain_weight``), so the CPU and
+the card's plain comparison take the same staged tuple.
+
+``conv_block_fused`` launches the kernels for CUDA tensors and runs
+``conv_block_plain`` for CPU tensors; it never falls back on the card. It
+counts one launch a block, whatever the route. Used by the serving encode
+(``inference.SpeechDecoder``).
 """
 
 from __future__ import annotations
@@ -29,6 +44,13 @@ import torch
 from speech_decoding_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of each C entry of csrc/conv_block.cu, set once when the library loads
+_SIGNATURES = {
+    "conv_block_fused_f32": [_P] * 10 + [_I] * 5 + [_P],
+    "conv_block_fused_wg": [_P] * 12 + [_I] * 6 + [_P],
+}
+_entries = {}
 
 Staged = Tuple[torch.Tensor, ...]  # (w0, b0, a0, w1, b1, a1, w2, b2)
 
@@ -58,90 +80,139 @@ def _conv3(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
     return y
 
 
+def plain_weight(w: torch.Tensor, cin: int, glu: bool = False) -> torch.Tensor:
+    """A staged weight as the reference holds it, (3, Cin, Cout): an f32
+    weight is itself; a bf16 one is read back from its K-major image (the
+    depth padding dropped; with ``glu``, the interleaved value and gate
+    columns split back into halves, one copy)."""
+    if w.dtype != torch.bfloat16:
+        return w
+    wk = w[..., :cin]
+    if glu:
+        n = wk.shape[1]
+        return wk.reshape(3, n // 2, 2, cin).permute(0, 3, 2, 1).reshape(3, cin, n)
+    return wk.transpose(1, 2)
+
+
 def conv_block_plain(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
-    """Reference for the kernel: the Pallas ``_block_kernel`` step by step.
+    """Reference for the kernels: the Pallas ``_block_kernel`` step by step.
     x (B, T, Cin) -> (B, T, D2) in x's dtype; the conv outputs, bias, skip and
     BN affine are f32, y0 and y1 are cast to x's dtype before the next conv.
-    Input channels of w0 beyond Cin (the zero depth padding of a staged bf16
-    w0) are not read."""
+    Weights as ``stage_weight`` lays them out for their dtype."""
     d0, d1 = dilations(k)
     dt = x.dtype
-    y = _conv3(x, w0[:, : x.shape[-1]], d0) + b0
+    D2 = b1.shape[0]
+    w0, w1, w2 = plain_weight(w0, x.shape[-1]), plain_weight(w1, D2), plain_weight(w2, D2, glu=True)
+    y = _conv3(x, w0, d0) + b0
     if k > 0:
         y = y + x.float()
     y = _gelu_exact_f32(y * a0[0] + a0[1]).to(dt)
     y1 = _conv3(y, w1, d1) + b1 + y.float()
     y1 = _gelu_exact_f32(y1 * a1[0] + a1[1]).to(dt)
     y2 = _conv3(y1, w2, 2) + b2
-    D2 = y2.shape[-1] // 2
     return (y2[..., :D2] * torch.sigmoid(y2[..., D2:])).to(dt)
 
 
 def conv0_depth(cin: int, dtype: torch.dtype) -> int:
-    """Input channels of the staged conv0 weight: the bf16 kernel works in
-    16-channel fragments, so there the depth is zero-padded to a multiple of 16."""
-    return cin + (-cin % 16) if dtype == torch.bfloat16 else cin
+    """Input channels of the staged conv0 weight: the bf16 route reads x and
+    its weight image through tensor maps of 16-byte rows, so there the depth
+    is zero-padded to a multiple of 8 (270 -> 272)."""
+    return cin + (-cin % 8) if dtype == torch.bfloat16 else cin
 
 
-def stage_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A (3, Cin, Cout) conv weight as the kernel reads it: cast to ``dtype``
-    and zero-padded to ``conv0_depth`` input channels, in a buffer of its own
-    (so 16-byte aligned for the kernel's vector copies)."""
-    taps, cin, cout = w.shape
-    out = torch.zeros((taps, conv0_depth(cin, dtype), cout), dtype=dtype, device=w.device)
-    out[:, :cin] = w
-    return out
+def stage_weight(w: torch.Tensor, dtype: torch.dtype, glu: bool = False) -> torch.Tensor:
+    """A (3, Cin, Cout) conv weight as the route of ``dtype`` reads it, in a
+    buffer of its own (16-byte aligned). f32: (3, Cin, Cout). bf16: the
+    K-major image (3, Cout, ``conv0_depth(Cin)``) of ``tap_conv.pack_weights``
+    with ``[j, n, ci] = w[j, ci, n]``; with ``glu`` (conv2, Cout = 2·D2)
+    ``conv_block_train.glu_pack``'s, whose rows 2c and 2c + 1 are channel c's
+    value and gate columns."""
+    if dtype != torch.bfloat16:
+        return torch.empty(w.shape, dtype=dtype, device=w.device).copy_(w)
+    from speech_decoding_tpu_torch.ops.conv_block_train import glu_pack
+    from speech_decoding_tpu_torch.ops.tap_conv import pack_weights
+
+    w = w.to(dtype)
+    return glu_pack(w) if glu else pack_weights(w)
+
+
+def _entry(name: str):
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(_build.load("conv_block"), name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def _route(dtype: torch.dtype, D2: int) -> str:
+    """The route rule: ``"wgmma"`` for bf16 with D2 % 8 == 0 (TMA's 16-byte
+    rows of h0, h1 and the weight images), ``"f32"`` for f32. Any other
+    input raises: nothing falls back."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"conv_block_fused takes float32 or bfloat16 x, got {dtype}")
+    if D2 % 8:
+        raise ValueError(f"the bf16 route needs D2 % 8 == 0 (16-byte rows of h0, h1 and the weights), got D2={D2}")
+    return "wgmma"
 
 
 def _launch(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
     B, T, Cin = x.shape
-    D2 = w1.shape[-1]
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"conv_block_fused takes float32 or bfloat16 x, got {x.dtype}")
-    if x.dtype == torch.bfloat16 and D2 % 16:
-        # the tensor-core path works in 16-channel fragments
-        raise ValueError(f"the bf16 kernel needs D2 % 16 == 0, got D2={D2}")
-    expect = [
-        (w0, (3, conv0_depth(Cin, x.dtype), D2), x.dtype), (b0, (D2,), torch.float32), (a0, (2, D2), torch.float32),
-        (w1, (3, D2, D2), x.dtype), (b1, (D2,), torch.float32), (a1, (2, D2), torch.float32),
-        (w2, (3, D2, 2 * D2), x.dtype), (b2, (2 * D2,), torch.float32),
-    ]
+    D2 = w1.shape[1]
+    route = _route(x.dtype, D2)
+    f32, dt = torch.float32, x.dtype
+    if route == "wgmma":  # the K-major images of stage_weight
+        s0, s1, s2 = (3, D2, conv0_depth(Cin, dt)), (3, D2, D2), (3, 2 * D2, D2)
+    else:
+        s0, s1, s2 = (3, Cin, D2), (3, D2, D2), (3, D2, 2 * D2)
+    expect = [(w0, s0, dt), (b0, (D2,), f32), (a0, (2, D2), f32), (w1, s1, dt), (b1, (D2,), f32),
+              (a1, (2, D2), f32), (w2, s2, dt), (b2, (2 * D2,), f32)]
     for i, (t, shape, dtype) in enumerate(expect):
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"conv_block_fused argument {i + 1}: expected {shape} {dtype}, got "
                              f"{tuple(t.shape)} {t.dtype} (stage the weights with prepare_fused_stack)")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"conv_block_fused argument {i + 1} must be contiguous on {x.device}")
-        if x.dtype == torch.bfloat16 and t.dim() == 3 and t.data_ptr() % 16:
-            # weights are copied in 16-byte pieces
+        if route == "wgmma" and t.dim() == 3 and t.data_ptr() % 16:
+            # the weight images are read through tensor maps
             raise ValueError(f"conv_block_fused argument {i + 1} must start 16-byte aligned")
     if not x.is_contiguous():
         raise ValueError("conv_block_fused takes a contiguous x")
     if k > 0 and Cin != D2:
         raise ValueError(f"block k={k} has a skip around conv0, so Cin must equal D2 ({Cin} != {D2})")
-    if x.data_ptr() % 16:  # the x window is read with 16-byte loads where the width allows
-        x = x.clone()
     out = torch.empty((B, T, D2), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = getattr(_build.load("conv_block"), f"conv_block_fused_{_DTYPES[x.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), a0.data_ptr(), w1.data_ptr(),
-                 b1.data_ptr(), a1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                 B, T, Cin, D2, k, stream)
-    _build.check(err, f"conv_block_fused k={k}")
+        if route == "wgmma":
+            from speech_decoding_tpu_torch.ops.tap_conv import _sms, pad_channels
+
+            xp = pad_channels(x)  # 16-byte rows and base: block 0's 270 channels become 272
+            h0, h1 = torch.empty_like(out), torch.empty_like(out)
+            err = _entry("conv_block_fused_wg")(
+                xp.data_ptr(), w0.data_ptr(), b0.data_ptr(), a0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                a1.data_ptr(), w2.data_ptr(), b2.data_ptr(), h0.data_ptr(), h1.data_ptr(), out.data_ptr(),
+                B, T, xp.shape[2], D2, k, _sms(x.device), stream)
+        else:
+            if x.data_ptr() % 16:  # the x window is read with 16-byte loads where the width allows
+                x = x.clone()
+            err = _entry("conv_block_fused_f32")(
+                x.data_ptr(), w0.data_ptr(), b0.data_ptr(), a0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                a1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, T, Cin, D2, k, stream)
+    _build.check(err, f"conv_block_fused k={k} ({route})")
+    conv_block_fused.route = route
     conv_block_fused.launches += 1
     return out
 
 
 def conv_block_fused(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
-    """Eval-mode ConvBlock k: x (B, T, Cin) -> (B, T, D2). Weights (3, Cin,
-    D2), (3, D2, D2), (3, D2, 2·D2) in x's dtype, as ``stage_weight`` lays
-    them out (in bf16, w0's depth padded to a multiple of 16); biases and the
-    folded BN affines a0/a1 (2, D2) in f32."""
+    """Eval-mode ConvBlock k: x (B, T, Cin) -> (B, T, D2). Weights in x's
+    dtype as ``stage_weight`` lays them out for it (w2 with ``glu``);
+    biases and the folded BN affines a0/a1 (2, D2) in f32."""
     if x.is_cuda:
         return _launch(x, w0, b0, a0, w1, b1, a1, w2, b2, k)
     if x.device.type != "cpu":
@@ -149,7 +220,8 @@ def conv_block_fused(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
     return conv_block_plain(x, w0, b0, a0, w1, b1, a1, w2, b2, k)
 
 
-conv_block_fused.launches = 0  # kernel launches (CUDA tensors only)
+conv_block_fused.launches = 0  # launches (CUDA tensors only): one a block, whatever the route
+conv_block_fused.route = None  # the route of the last launch: "wgmma" or "f32"
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5) -> torch.Tensor:
@@ -172,7 +244,7 @@ def prepare_fused_stack(blocks: Sequence, dtype: torch.dtype) -> List[Staged]:
                 fold_bn(bn0.scale, bn0.bias, bn0.mean, bn0.var, bn0.eps).contiguous(),
                 stage_weight(blk.conv1.kernel, dtype), blk.conv1.bias.float().contiguous(),
                 fold_bn(bn1.scale, bn1.bias, bn1.mean, bn1.var, bn1.eps).contiguous(),
-                stage_weight(blk.conv2.kernel, dtype), blk.conv2.bias.float().contiguous(),
+                stage_weight(blk.conv2.kernel, dtype, glu=True), blk.conv2.bias.float().contiguous(),
             ))
     return staged
 

@@ -34,9 +34,10 @@ Each stage function (``f1`` … ``b3``, ``f31``) launches its CUDA kernels
 (``f1_plain`` … ``b3_plain``) for CPU tensors; it never falls back on the
 card. On the card a stage takes one of two routes, by ``_fast_path``:
 ``"wgmma"`` (bf16, C a multiple of 8, 16-byte-aligned y0/y1: K5's TMA-fed
-``wgmma`` body of ``csrc/hopper.cuh`` with the stage's epilogue, its
-weights packed K-major here, the GLU conv's by ``glu_pack``, and the
-BN·GELU of F2, F3 and B1 as a pointwise pass that stores h0 or h1) or
+``wgmma`` body, ``conv_wg`` of ``csrc/conv_wg.cuh`` (shared with K4), with
+the stage's epilogue, its weights packed K-major here, the GLU conv's by
+``glu_pack``, and the BN·GELU of F2, F3 and B1 as a pointwise pass that
+stores h0 or h1) or
 ``"tap3"`` (f32, and bf16 outside the rule: the conv tile of
 ``csrc/tap3.cuh``). ``conv_block_train.route`` records the last launch's.
 ``TILE`` holds every stage on the tap3 route whatever the dtype (``f3_tile``
@@ -68,7 +69,7 @@ from speech_decoding_tpu_torch.ops.tap_conv import (
 )
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# time rows a conv tile: csrc/conv_block_train.cu wg::TM, csrc/tap3.cuh TM (also the BN-backward pass's tile)
+# time rows a conv tile: csrc/conv_wg.cuh wg::TM, csrc/tap3.cuh TM (also the BN-backward pass's tile)
 _TM = {"wgmma": 192, "tap3": 64}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (pointers, ints) of each C entry before its stream; the tap3 entries come in f32 and bf16

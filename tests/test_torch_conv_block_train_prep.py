@@ -132,8 +132,9 @@ def _c_constant(src: str, name: str) -> str:
 
 def test_tiles_match_the_cuda_sources():
     """_TM follows the tiles the kernels use: wg::TM = 64 * CONSUMERS rows on
-    the wgmma route, tap3's TM on the tap3 route (and the BN-backward pass)."""
-    with open(os.path.join(_build.SRC_DIR, "conv_block_train.cu")) as f:
+    the wgmma route (conv_wg.cuh, the body K6 shares with K4), tap3's TM on
+    the tap3 route (and the BN-backward pass)."""
+    with open(os.path.join(_build.SRC_DIR, "conv_wg.cuh")) as f:
         wg = f.read().split("namespace wg {")[1].split("}  // namespace wg")[0]
     with open(os.path.join(_build.SRC_DIR, "tap3.cuh")) as f:
         tap3 = f.read()

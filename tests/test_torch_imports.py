@@ -59,7 +59,8 @@ def test_kernel_sources_and_config_ship_with_the_package():
                 "tap_conv.cu": ["ops/pallas/tap_conv.py"],
                 "conv_block_train.cu": ["ops/pallas/", "conv_block_train.py", "tools/bench_cross_block_merge.py"],
                 "tap3.cuh": ["ops/pallas/", "conv_block.py:50", "ops/pallas/tap_conv.py"],
-                "hopper.cuh": ["ops/pallas/tap_conv.py"]}
+                "hopper.cuh": ["ops/pallas/tap_conv.py"],
+                "conv_wg.cuh": ["ops/pallas/", "conv_block.py:50", "conv_block_train.py"]}
     assert sorted(replaces) == sorted(os.listdir(_build.SRC_DIR))
     for name, files in replaces.items():
         with open(os.path.join(_build.SRC_DIR, name)) as f:

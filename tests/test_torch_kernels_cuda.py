@@ -77,7 +77,7 @@ def _staged(dev, cin, d2, dtype, seed):
     return (
         tcb.stage_weight(r(3, cin, d2) / (3 * cin) ** 0.5, dtype), 0.1 * r(d2), aff(),
         tcb.stage_weight(r(3, d2, d2) / (3 * d2) ** 0.5, dtype), 0.1 * r(d2), aff(),
-        tcb.stage_weight(r(3, d2, 2 * d2) / (3 * d2) ** 0.5, dtype), 0.1 * r(2 * d2),
+        tcb.stage_weight(r(3, d2, 2 * d2) / (3 * d2) ** 0.5, dtype, glu=True), 0.1 * r(2 * d2),
     )
 
 
@@ -85,13 +85,29 @@ def _staged(dev, cin, d2, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D1,D2", [(2, 360, 270, 320), (3, 37, 40, 48), (2, 5, 16, 16)])
 def test_conv_block_kernel(dev, k, dtype, B, T, D1, D2):
+    """Each block against its plain version; bf16 takes the wgmma route
+    (three conv_wg launches counted as one), f32 the CUDA-core body. T=37
+    and T=5 put every dilation past both edges of the recording."""
     cin = D1 if k == 0 else D2
     args = _staged(dev, cin, D2, dtype, seed=k)
     x = torch.randn(B, T, cin, device=dev).to(dtype)
     before = tcb.conv_block_fused.launches
     got = tcb.conv_block_fused(x, *args, k=k)
     assert tcb.conv_block_fused.launches == before + 1
+    assert tcb.conv_block_fused.route == ("wgmma" if dtype == torch.bfloat16 else "f32")
     _close(got, tcb.conv_block_plain(x, *args, k=k), dtype, scale=1.0 if dtype == torch.bfloat16 else 10.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [0, 3])
+def test_conv_block_kernel_is_deterministic(dev, dtype, k):
+    """Two runs on the same inputs give the same bits (no atomics on either route)."""
+    cin = 270 if k == 0 else 320
+    args = _staged(dev, cin, 320, dtype, seed=7 + k)
+    x = torch.randn(8, 360, cin, device=dev).to(dtype)
+    a, b = tcb.conv_block_fused(x, *args, k=k), tcb.conv_block_fused(x, *args, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_conv_block_kernel_rejects(dev):
@@ -109,11 +125,11 @@ def test_conv_block_kernel_rejects(dev):
     assert xs.data_ptr() % 16
     torch.testing.assert_close(tcb.conv_block_fused(xs, *args, k=0), tcb.conv_block_plain(xs, *args, k=0),
                                atol=1e-4, rtol=1e-4)
-    odd = [a.bfloat16() if a.dtype == torch.float32 and a.dim() == 3 else a
-           for a in _staged(dev, 24, 24, torch.float32, seed=0)]
-    with pytest.raises(ValueError, match="D2 % 16"):
+    # the bf16 route's rows are 16 bytes: D2 = 20 raises, it does not fall back
+    odd = _staged(dev, 24, 20, torch.bfloat16, seed=0)
+    with pytest.raises(ValueError, match="D2 % 8"):
         tcb.conv_block_fused(torch.zeros(2, 8, 24, device=dev, dtype=torch.bfloat16), *odd, k=0)
-    # bf16 weights must come staged: conv0's depth padded to 16, 16-byte aligned
+    # bf16 weights must come staged: the K-major images, 16-byte aligned
     raw = [a.bfloat16() if a.dim() == 3 else a for a in _staged(dev, 24, 16, torch.float32, seed=0)]
     x16 = torch.zeros(2, 8, 24, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="argument 1"):
@@ -123,6 +139,12 @@ def test_conv_block_kernel_rejects(dev):
     staged[0] = torch.zeros(w0.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(w0.shape).copy_(w0)
     with pytest.raises(ValueError, match="aligned"):
         tcb.conv_block_fused(x16, *staged, k=0)
+    # a misaligned bf16 x is copied (as block 0's 270 channels are padded) and must match
+    x16 = torch.randn(2, 8, 24, device=dev).bfloat16()
+    xm = torch.zeros(x16.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(x16.shape).copy_(x16)
+    staged[0] = w0
+    torch.testing.assert_close(tcb.conv_block_fused(xm, *staged, k=0), tcb.conv_block_fused(x16, *staged, k=0),
+                               atol=0, rtol=0)
 
 
 def test_subject_matmul_kernel_realigns_views(dev):
@@ -685,6 +707,22 @@ def test_conv_block_train_stages_are_deterministic(dev, dtype):
         torch.cuda.synchronize()
         for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x, y), stage
+
+
+@pytest.mark.parametrize("stage", list(cbt.STAGES))
+def test_conv_block_train_wgmma_stages_on_the_shared_body(dev, stage):
+    """K6's stages on conv_wg (csrc/conv_wg.cuh, the body K4 shares) at the
+    flagship's B=64: the wgmma route, within tolerance of the plain version,
+    two runs bitwise equal."""
+    args = cbt.stage_inputs(64, 360, 320, 320, 1, torch.bfloat16, dev, torch.Generator(device=dev).manual_seed(5))
+    fn = cbt.STAGES[stage]
+    a = fn(*args[stage])
+    assert cbt.conv_block_train.route == "wgmma"
+    b = fn(*args[stage])
+    torch.cuda.synchronize()
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        assert torch.equal(x, y)
+    _k6_close(a, cbt.PLAIN[stage](*args[stage]), 1e-3)
 
 
 @pytest.mark.parametrize("k", [0, 3])

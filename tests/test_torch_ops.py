@@ -118,20 +118,24 @@ class TestConvBlock:
         got = tcb.fold_bn(_t(p["scale"]), _t(p["bias"]), _t(st["mean"]), _t(st["var"]))
         np.testing.assert_array_equal(got.numpy(), jcb.fold_bn(p, st))
 
-    @pytest.mark.parametrize("cin", [16, 24])
+    @pytest.mark.parametrize("cin", [16, 27])
     def test_staged_bf16_conv0_is_depth_padded(self, cin):
-        """bf16 staging zero-pads conv0's depth to a multiple of 16 once; the
-        wrapper's plain version reads only the first Cin rows."""
+        """bf16 staging lays conv0's weight out K-major with its depth
+        zero-padded to a multiple of 8 once; the wrapper's plain version reads
+        only the first Cin columns, and the bf16 images give the bits of the
+        same weights staged in f32."""
         rng = np.random.default_rng(4)
         args = [_t(a) for a in _block_args(rng, 0, cin, D)]
         w0 = tcb.stage_weight(args[0], torch.bfloat16)
-        assert w0.shape == (3, tcb.conv0_depth(cin, torch.bfloat16), D) == (3, 32 if cin == 24 else 16, D)
-        assert not w0[:, cin:].any()
+        assert w0.shape == (3, D, tcb.conv0_depth(cin, torch.bfloat16)) == (3, D, 32 if cin == 27 else 16)
+        assert not w0[..., cin:].any()
         assert tcb.stage_weight(args[0], torch.float32).shape == (3, cin, D)
         x = _t(rng.normal(size=(B, T, cin)).astype(np.float32)).bfloat16()
-        w = [a.bfloat16() if a.dim() == 3 else a for a in args]
-        got = tcb.conv_block_fused(x, w0, *w[1:], k=0)
-        np.testing.assert_array_equal(got.float().numpy(), tcb.conv_block_plain(x, *w, k=0).float().numpy())
+        w16 = [w0, args[1], args[2], tcb.stage_weight(args[3], torch.bfloat16), args[4], args[5],
+               tcb.stage_weight(args[6], torch.bfloat16, glu=True), args[7]]
+        w32 = [a.bfloat16().float() if a.dim() == 3 else a for a in args]  # the same bf16 values, f32 layout
+        got = tcb.conv_block_fused(x, *w16, k=0)
+        np.testing.assert_array_equal(got.float().numpy(), tcb.conv_block_plain(x, *w32, k=0).float().numpy())
 
     @pytest.mark.parametrize("k,expect", [(0, (1, 2)), (1, (4, 8)), (2, (16, 1)), (3, (2, 4)), (4, (8, 16))])
     def test_dilations(self, k, expect):
