@@ -56,13 +56,19 @@ What it does, in order (one JSON object per line on stdout):
      two runs must give the same bits; then one block's
      ``conv_block_train`` forward and backward against the module
      ``ConvBlock``'s train forward with autograd, in f32;
-  4c. K7 ``f31`` (F3 of block k merged with F1 of block k+1) against
-     ``f31_plain``: bf16 at (64, 360, 320) and f32 at B=4 for every
-     boundary (k_next 1..4), ragged B=3, T=37 at d0n=16, f32 and bf16; at
-     every one of those shapes against K6's tap3 pair ``f3_tile`` then
-     ``f1_tile`` (out and y0n bitwise, s0n rtol 1e-6) and against K6's own
-     F3 then F1 (in bf16 the ``wgmma`` route: activations atol 1e-2 rtol
-     1e-2, s0n 1e-3 of its largest entry); two runs must give the same bits;
+  4c. K7 ``f31`` (F3 of block k merged with F1 of block k+1) and
+     ``f31_tile`` (K7 on the tap3 route in any dtype) against the plain
+     version (the tap3 route against ``f31_plain``, the wgmma route stage by
+     stage: out against ``f3_plain``, y0n and s0n against ``f1_plain`` on
+     K7's own out):
+     bf16 at (64, 360, 320) and f32 at B=4 for every boundary (k_next
+     1..4), ragged B=3, T=37 at d0n=16 in f32 and bf16, and bf16 at B=3,
+     T=400 (three time tiles) for k_next 2 and 3; each with its route
+     asserted (``f31.route``: f31 ``wgmma`` in bf16, ``tap3`` in f32;
+     f31_tile ``tap3``) and against K6's pair of that route on the same
+     inputs (wgmma: ``f3`` then ``f1``, out, y0n and s0n bitwise; tap3:
+     ``f3_tile`` then ``f1_tile``, out and y0n bitwise, s0n rtol 1e-6);
+     every call repeated bit for bit;
   5. the whole encode at full width (S=27, C=208, T=360, D1=270, D2=320,
      F=1024, K=32, random BatchNorm running statistics): the fused serving
      path (K1 + five K4 launches) against the module path, f32 and bf16;
@@ -118,9 +124,10 @@ What it does, in order (one JSON object per line on stdout):
      CUDA-core body (the parent's route for these inputs) with and without
      its preparation, and the yardstick with and without its own;
   12. the K7 tool path: ``speech_decoding_tpu_torch.tools.bench_cross_block_merge``
-     (equivalence, then the tap3 pair, the wgmma pair and the merged kernel
-     timed), re-emitted as one ``tool`` line with K7's plain time, bound and
-     device time beside both pairs';
+     for every boundary k_next 1..4 (equivalence, then the tap3 pair, the
+     wgmma pair, f31_tile and f31 timed by CUDA events), re-emitted as one
+     ``tool`` line each with the four on the device alone, K7's plain time,
+     bound and f31's waits on its ready counters;
   13. the training loop, each path with every counter set to 0 just before
      and read just after: ``trainer``, the port's ``tools/scale_run`` at the
      flagship (4 epochs of 100 updates over a device-resident pool of 512 +
@@ -139,7 +146,8 @@ What it does, in order (one JSON object per line on stdout):
      K4), its top-10 hit rate within 2/64 of the same orientation computed
      through the eval path from the same checkpoint;
   14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, each with its
-     launches by path; K1–K6 with their device ms), the card line again, and last ``{"ok": true,
+     launches by path and device ms; K7 with its body, its bitwise partner
+     and its tap3 route), the card line again, and last ``{"ok": true,
      "device": {...}}``.
 
 Any mismatch or exception exits non-zero without the last line; so does a
@@ -354,7 +362,8 @@ def main() -> int:
     counted = {"subject_matmul": subject_matmul, "conv_block_fused": conv_block_fused,
                "tap_conv_dw": tap_conv_dw, "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv,
                **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()},
-               **{f"conv_block_train.{name}_tile": fn for name, fn in cbt.TILE.items()}, "conv_block_train.F31": cbt.f31}
+               **{f"conv_block_train.{name}_tile": fn for name, fn in cbt.TILE.items()}, "conv_block_train.F31": cbt.f31,
+               "conv_block_train.F31_tile": cbt.f31_tile}
 
     def reset_counts():
         for fn in counted.values():
@@ -673,61 +682,69 @@ def main() -> int:
              bitwise_equal=True)
     del ins
 
-    # -- 4c. K7 vs plain and vs the split pairs ----------------------------------
-    # f31 against f31_plain (activations as K6's: a flipped bf16 rounding, 1e-2
-    # + 1e-2 relative; s0n at 1e-3 (bf16) or 1e-4 (f32) of its largest entry),
-    # against K6's tap3 pair f3_tile then f1_tile on the same inputs: out and
-    # y0n bitwise (the same chunk walk and tap order), s0n within rtol 1e-6;
-    # and each half against K6's stage (the wgmma route in bf16) on the same
-    # inputs at the tolerances of the plain version: out against F3, y0n and
-    # s0n against F1 on K7's own out (chained, F1 on F3's out would carry
-    # each flipped rounding of out into y0n through the skip)
+    # -- 4c. K7 vs plain and vs the pair of its route ------------------------------
+    # f31 and f31_tile against the plain version (activations as K6's: a
+    # flipped bf16 rounding, 1e-2 + 1e-2 relative; s0n at 1e-3 (bf16) or 1e-4
+    # (f32) of its largest entry): the tap3 route against f31_plain, the
+    # wgmma route stage by stage (out against f3_plain, y0n and s0n against
+    # f1_plain on K7's own out, as K6's stages are held: chained, a flipped
+    # bf16 rounding of out reaches y0n through the skip, where y0n can cancel
+    # to near zero; the chained error is reported). Each with its route
+    # asserted (f31: wgmma in bf16, tap3 in f32; f31_tile: tap3) and against
+    # the K6 pair of that route on the same inputs: wgmma, out, y0n and s0n
+    # bitwise f3 then f1; tap3, out and y0n bitwise f3_tile then f1_tile, s0n
+    # within rtol 1e-6 (the same chunk walk and tap order); every call
+    # repeated bit for bit. The T=400 checks (three time tiles: the middle
+    # one's F1 reads both neighbours' F3 tiles) draw from their own generator
     k7_err = {}
+    gk7 = torch.Generator(device=dev).manual_seed(args.seed + 7)
 
-    def k7_check(tag, b_, t_, k_next, dtype):
-        ins = cbt.stage_inputs(b_, t_, D2, D2, k_next, dtype, dev, gk6)
+    def k7_check(tag, b_, t_, k_next, dtype, gen=gk6):
+        ins = cbt.stage_inputs(b_, t_, D2, D2, k_next, dtype, dev, gen)
         args7 = (*ins["F3"], *ins["F1"][1:3], k_next)  # block k's F3, block k_next's conv0
-        got, want = cbt.f31(*args7), cbt.f31_plain(*args7)
+        want = cbt.f31_plain(*args7)
         rel = 1e-3 if dtype == bf16 else 1e-4
-        errs = [compare(f"K7 {tag} output {i}", a, b, *((1e-2, 1e-2) if a.dtype == bf16 else
-                                                        (rel * float(b.abs().max()), rel)), show=False)
-                for i, (a, b) in enumerate(zip(got, want))]
-        out_s = cbt.f3_tile(*args7[:5])
-        y0n_s, s0n_s = cbt.f1_tile(out_s, args7[5], args7[6], k_next)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], out_s) and torch.equal(got[1], y0n_s)):
-            raise AssertionError(f"K7 {tag} k_next={k_next}: out or y0n differs from the tap3 pair F3 + F1")
-        if not torch.allclose(got[2], s0n_s, rtol=1e-6, atol=0.0):
-            raise AssertionError(f"K7 {tag} k_next={k_next}: s0n differs from the tap3 pair's beyond rtol 1e-6")
-        pair = (cbt.f3(*args7[:5]), *cbt.f1(got[0], args7[5], args7[6], k_next))
-        pair_route = cbt.conv_block_train.route
-        pair_err = max(compare(f"K7 {tag} vs the {pair_route} pair, output {i}", a, b,
-                               *((1e-2, 1e-2) if a.dtype == bf16 else (rel * float(b.abs().max()), rel)), show=False)
-                       for i, (a, b) in enumerate(zip(got, pair)))
-        name = f"K7 f31 k_next={k_next} {tag} {(b_, t_, D2)}"
-        emit(check=name, d0n=dilations(k_next)[0], max_abs_err=max(errs),
-             max_abs_ref={n: float(b.abs().max()) for n, b in zip(("out", "y0n", "s0n"), want)},
-             vs_plain_bf16="atol 1e-2 rtol 1e-2",
-             vs_plain_f32=f"{rel} of the largest entry, rtol {rel}",
-             vs_tap3_pair="out, y0n bitwise; s0n rtol 1e-6",
-             s0n_bitwise_equal_to_tap3_pair=bool(torch.equal(got[2], s0n_s)),
-             pair_route=pair_route, vs_pair_max_abs_err=pair_err, vs_pair="as vs plain")
-        k7_err[name] = max(errs)
-        return args7
+        for fn, want_route in ((cbt.f31, "wgmma" if dtype == bf16 else "tap3"), (cbt.f31_tile, "tap3")):
+            got = fn(*args7)
+            route = cbt.f31.route
+            name = f"K7 {fn.__name__} k_next={k_next} {tag} {(b_, t_, D2)}"
+            if route != want_route:
+                raise AssertionError(f"{name} took {route}, not {want_route}")
+            ref = want if route == "tap3" else (want[0], *cbt.f1_plain(got[0], args7[5], args7[6], k_next))
+            errs = [compare(f"{name} output {i}", a, b, *((1e-2, 1e-2) if a.dtype == bf16 else
+                                                          (rel * float(b.abs().max()), rel)), show=False)
+                    for i, (a, b) in enumerate(zip(got, ref))]
+            chained = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+            f3p, f1p = (cbt.f3, cbt.f1) if route == "wgmma" else (cbt.f3_tile, cbt.f1_tile)
+            out_p = f3p(*args7[:5])
+            pair = (out_p, *f1p(out_p, args7[5], args7[6], k_next))
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], pair[0]) and torch.equal(got[1], pair[1])):
+                raise AssertionError(f"{name}: out or y0n differs from its pair {f3p.__name__} + {f1p.__name__}")
+            s0n_equal = bool(torch.equal(got[2], pair[2]))
+            if not (s0n_equal or (route == "tap3" and torch.allclose(got[2], pair[2], rtol=1e-6, atol=0.0))):
+                raise AssertionError(f"{name}: s0n differs from its pair's")
+            again = fn(*args7)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two runs on the same inputs differ")
+            emit(check=name, route=route, d0n=dilations(k_next)[0], max_abs_err=max(errs),
+                 max_abs_ref={n: float(b.abs().max()) for n, b in zip(("out", "y0n", "s0n"), want)},
+                 vs_plain="f31_plain" if route == "tap3" else "f3_plain; f1_plain on K7's own out",
+                 vs_plain_bf16="atol 1e-2 rtol 1e-2", vs_plain_f32=f"{rel} of the largest entry, rtol {rel}",
+                 chained_vs_f31_plain_max_abs_err=chained,
+                 pair=f"{f3p.__name__} + {f1p.__name__}",
+                 vs_pair="out, y0n, s0n bitwise" if route == "wgmma" else "out, y0n bitwise; s0n rtol 1e-6",
+                 s0n_bitwise_equal_to_pair=s0n_equal, repeat_bitwise_equal=True)
+            k7_err[name] = max(errs)
 
     for k_next in range(1, 5):
         k7_check("bf16", B, T, k_next, bf16)
         k7_check("f32", 4, T, k_next, f32)
-    for dtype in (f32, bf16):  # d0n=16 against T=37: the window passes both edges of the recording
+    for dtype in (f32, bf16):  # d0n=16 against T=37: the reads pass both edges of the recording
         k7_check(f"{str(dtype)[6:]} ragged", 3, 37, 2, dtype)
-    for dtype in (bf16, f32):
-        args7 = k7_check(f"{str(dtype)[6:]} repeat", B, T, 2, dtype)
-        first, second = cbt.f31(*args7), cbt.f31(*args7)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(first, second)):
-            raise AssertionError(f"K7 {dtype}: two runs on the same inputs differ")
-        emit(check=f"K7 {str(dtype)[6:]} deterministic", shape=[B, T, D2], k_next=2, bitwise_equal=True)
-    del args7, first, second
+    for k_next in (2, 3):  # three time tiles
+        k7_check("bf16 ragged", 3, 400, k_next, bf16, gk7)
 
     # one block: conv_block_train's forward and backward against the module
     # ConvBlock's train forward with autograd, f32 on the card (the same
@@ -1408,34 +1425,53 @@ def main() -> int:
         del Z, Y
 
     # -- 12. the K7 tool path: the port's bench_cross_block_merge --------------------
-    # its equivalence checks and its timings (the tap3 pair F3 + F1, K7's
-    # bitwise partner, and the wgmma pair, its yardstick, against the merged
-    # kernel, the best of 3 rounds of 50); the counters span the whole run.
-    # Then each of the three on the device alone
+    # for every boundary (k_next 1..4): its equivalence checks and its timings
+    # by CUDA events (the tap3 pair F3 + F1, f31_tile's bitwise partner; the
+    # wgmma pair, f31's bitwise partner and yardstick; f31_tile; f31, the
+    # best of 3 rounds of 50); the counters span the four runs. Then each of
+    # the four on the device alone, and f31's waits on its ready counters
     torch.cuda.synchronize()
     reset_counts()
-    tool = merge_tool.run("cuda")
+    tools = {k_next: merge_tool.run("cuda", k_next) for k_next in range(1, 5)}
     tool_launches = read_counts()
-    if min(tool_launches[f"conv_block_train.{st}"] for st in ("F31", "F3", "F1", "F3_tile", "F1_tile")) < 1:
+    if min(tool_launches[f"conv_block_train.{st}"]
+           for st in ("F31", "F31_tile", "F3", "F1", "F3_tile", "F1_tile")) < 1:
         raise AssertionError(f"a kernel of the tool path never launched: {tool_launches}")
+    if any(tool["route"] != "wgmma" for tool in tools.values()):
+        raise AssertionError(f"the tool's f31 took {[tool['route'] for tool in tools.values()]}, not wgmma")
+    sm_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                  capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     x7 = merge_tool.make_inputs(B, T, D2, bf16, dev)
-    args7 = (x7["y1"], x7["mi1"], x7["gb1"], x7["w2"], x7["b2"], x7["w0n"], x7["b0n"], tool["k_next"])
-    k7_plain = time_ms(lambda: cbt.f31_plain(*args7), reps=5)
-    k7_dev = device_ms(lambda: cbt.f31(*args7))
-    pair_dev = {name: device_ms(lambda f3=f3, f1=f1: f1(f3(*args7[:5]), args7[5], args7[6], tool["k_next"]))
-                for name, f3, f1 in (("tap3", cbt.f3_tile, cbt.f1_tile), ("wgmma", cbt.f3, cbt.f1))}
-    k7_flops = conv_flops(D2, 2 * D2, 2) + conv_flops(D2, D2, tool["d0n"])
-    k7_bytes = nbytes(*args7[:7]) + 2 * B * T * D2 * 2 + 2 * D2 * 4
-    k7_bound, k7_by = bound_ms(k7_flops, k7_bytes, peaks, "bf16")
-    emit(tool="speech_decoding_tpu_torch.tools.bench_cross_block_merge", shape=tool["shape"], dtype=tool["dtype"],
-         d0n=tool["d0n"], split_ms=tool["split_ms"], pair_ms=tool["pair_ms"], merged_ms=tool["merged_ms"],
-         merged_device_ms=k7_dev or "not measured", tap3_pair_device_ms=pair_dev["tap3"] or "not measured",
-         wgmma_pair_device_ms=pair_dev["wgmma"] or "not measured", pair_route=tool["pair_route"],
-         vs_pair_max_abs_err=tool["vs_pair_max_abs_err"],
-         saving_us_per_boundary=tool["saving_us_per_boundary"], saving_us_per_step=tool["saving_us_per_step"],
-         forward_boundaries_per_step=tool["forward_boundaries_per_step"], plain_ms=k7_plain, bound_ms=k7_bound,
-         bound_by=k7_by, gflop=k7_flops / 1e9, mbytes=k7_bytes / 1e6, equal=tool["out_y0n_bitwise_equal"],
-         s0n_bitwise_equal=tool["s0n_bitwise_equal"], launches=tool_launches, timing=tool["timing"])
+    k7 = {}
+    for k_next, tool in tools.items():
+        args7 = (x7["y1"], x7["mi1"], x7["gb1"], x7["w2"], x7["b2"], x7["w0n"], x7["b0n"], k_next)
+        pair_dev = {name: device_ms(lambda f3=f3, f1=f1: f1(f3(*args7[:5]), args7[5], args7[6], k_next))
+                    for name, f3, f1 in (("tap3", cbt.f3_tile, cbt.f1_tile), ("wgmma", cbt.f3, cbt.f1))}
+        merged_dev, tile_dev = device_ms(lambda: cbt.f31(*args7)), device_ms(lambda: cbt.f31_tile(*args7))
+        flops = conv_flops(D2, 2 * D2, 2) + conv_flops(D2, D2, tool["d0n"])
+        moved = nbytes(*args7[:7]) + 2 * B * T * D2 * 2 + 2 * D2 * 4
+        bnd, by = bound_ms(flops, moved, peaks, "bf16")
+        waits = tool["ready_waits"]
+        k7[k_next] = dict(
+            k_next=k_next, d0n=tool["d0n"], route=tool["route"], merged_ms=tool["merged_ms"],
+            merged_device_ms=merged_dev or "not measured", pair_ms=tool["pair_ms"],
+            wgmma_pair_device_ms=pair_dev["wgmma"] or "not measured", merged_tap3_ms=tool["merged_tap3_ms"],
+            merged_tap3_device_ms=tile_dev or "not measured", split_ms=tool["split_ms"],
+            tap3_pair_device_ms=pair_dev["tap3"] or "not measured",
+            plain_ms=time_ms(lambda: cbt.f31_plain(*args7), reps=5), bound_ms=bnd, bound_by=by,
+            pct_of_bound=100 * bnd / tool["merged_ms"],
+            device_pct_of_bound=100 * bnd / merged_dev if merged_dev else "not measured",
+            gflop=flops / 1e9, mbytes=moved / 1e6, vs_plain_max_abs_err=tool["vs_plain_max_abs_err"],
+            saving_us_per_boundary=tool["saving_us_per_boundary"], ready_waits=waits["waits"],
+            ready_wait_cycles=waits["wait_cycles"], ready_claims=waits["claims"],
+            ready_wait_ms_summed_over_blocks=waits["wait_cycles"] / (sm_mhz * 1e3),
+            ready_wait_clock=f"clock64 cycles of the producers' polls at the {sm_mhz:.0f} MHz maximum SM clock",
+            bitwise_equal_to_pair=tool["out_y0n_bitwise_equal"] and tool["s0n_bitwise_equal"],
+            tile_out_y0n_bitwise_equal=tool["tile_out_y0n_bitwise_equal"],
+            tile_s0n_bitwise_equal=tool["tile_s0n_bitwise_equal"])
+        emit(tool="speech_decoding_tpu_torch.tools.bench_cross_block_merge", shape=tool["shape"],
+             dtype=tool["dtype"], **k7[k_next], **({"launches": tool_launches} if k_next == 1 else {}),
+             timing=tool["timing"])
     del x7, args7
 
     # -- 13. the training loop: the port's scale run at the flagship ---------------------
@@ -1673,15 +1709,22 @@ def main() -> int:
          "timed": "the six stages of all five blocks, one step's forward and backward"},
         {"name": "f31", "route": "cuda",
          "source": "speech_decoding_tpu_torch/csrc/conv_block_train.cu",
-         "header": "speech_decoding_tpu_torch/csrc/tap3.cuh",
+         "header": "speech_decoding_tpu_torch/csrc/conv_wg.cuh on hopper.cuh (bf16), "
+                   "speech_decoding_tpu_torch/csrc/tap3.cuh (f32, f31_tile)",
+         "body": "wgmma: one persistent launch of conv_wg's tiles, every F3 tile then every F1 tile, out through L2",
+         "bitwise_partner": "K6's wgmma pair f3 then f1 (out, y0n, s0n)",
          "replaces": "tools/bench_cross_block_merge.py:43",
          "also_replaces": "tools/bench_cross_block_merge.py:109",
          "launches": launches_of("conv_block_train.F31"),
          "launches_by_path": {k: p["conv_block_train.F31"] for k, p in paths.items()},
+         "tile_launches": launches_of("conv_block_train.F31_tile"),
          "max_abs_err": max(k7_err.values()),
-         "ms": tool["merged_ms"], "plain_ms": k7_plain, "bound_ms": k7_bound, "bound_by": k7_by,
-         "library_ms": None, "device_ms": k7_dev or "not measured", "tap3_pair_ms": tool["split_ms"],
-         "wgmma_pair_ms": tool["pair_ms"], "wgmma_pair_device_ms": pair_dev["wgmma"] or "not measured",
+         "ms": k7[1]["merged_ms"], "plain_ms": k7[1]["plain_ms"], "bound_ms": k7[1]["bound_ms"],
+         "bound_by": k7[1]["bound_by"], "library_ms": None, "device_ms": k7[1]["merged_device_ms"],
+         "wgmma_pair_ms": k7[1]["pair_ms"], "wgmma_pair_device_ms": k7[1]["wgmma_pair_device_ms"],
+         "tap3_route_ms": k7[1]["merged_tap3_ms"], "tap3_route_device_ms": k7[1]["merged_tap3_device_ms"],
+         "tap3_pair_ms": k7[1]["split_ms"], "tap3_pair_device_ms": k7[1]["tap3_pair_device_ms"],
+         "device_ms_by_k_next": {k: v["merged_device_ms"] for k, v in k7.items()},
          "library": "none: no single PyTorch call computes it; K6's wgmma pair F3 + F1 is its yardstick",
          "timed": "one block boundary (k_next=1, d0n=4) at the flagship, by the port's bench_cross_block_merge"},
     ])

@@ -36,8 +36,8 @@
 //     B3's K2 launch reuses.
 //   * f32, and bf16 outside the wrapper's route rule: the time tile of
 //     tap3.cuh (a halo of d, weights streamed through shared memory, the
-//     BN·GELU applied as the input is staged). K7 runs on it too, and the
-//     bf16 entries cbt_*_bf16 stay K7's bitwise partner.
+//     BN·GELU applied as the input is staged). K7's tap3 route runs on it
+//     too, and the bf16 entries cbt_*_bf16 stay that route's bitwise partner.
 //
 // Where a stage splits (each stage is one call of its wrapper):
 //   F1, F2: the conv with its epilogue, then the sums' reduction (wgmma:
@@ -65,22 +65,32 @@
 // (one 416-thread block a SM, capped at 128 registers), and the pointwise
 // passes and K2 are a third of it.
 //
-// K7 (cbt_f31): F3 of block k fused with F1 of block k+1, so that `out` is
-// not read back from device memory by the next conv. Replaces the Pallas TPU
-// kernel _f31_kernel of tools/bench_cross_block_merge.py (built at :109,
-// measured there against the split pair F3 then F1). The next conv reads
-// every channel of `out` at t +- d0n, so one 64 x 64 tile of `out` cannot
-// feed it: a K7 block owns 64 times of one recording across all C channels.
-// It recomputes F3 over its window of 64 + 2 d0n rows (two 64-row passes of
-// the conv tile, so F3's work doubles for every d0n <= 32), keeps that window
-// of `out` in shared memory in dt (zero outside the recording), writes its
-// own 64 rows to `out` (the backward still needs them), then runs F1's conv
-// on the window. Both convs go through tap3::Tile with the tap3 entries'
-// chunk walk and tap order, and the sums through the same per-(recording,
-// tile) partials and reduce_parts, so out, y0n and s0n equal those of
-// cbt_f3 then cbt_f1 (the tap3 pair) bit for bit. Bound: operations, as the
-// split pair (28.3 + 14.2 GFLOP at the flagship), and it saves one B*T*C
-// read of `out` (14.7 MB in bf16) against the split pair.
+// K7: F3 of block k fused with F1 of block k+1, so that `out` is not read
+// back from device memory by the next conv. Replaces the Pallas TPU kernel
+// _f31_kernel of tools/bench_cross_block_merge.py (built at :109, measured
+// there against the split pair F3 then F1). Two routes, as K6's stages:
+//   * bf16 (cbt_f31_wg, the wrapper's route rule): one persistent launch on
+//     conv_wg's tiles (f31_wg_kernel below) computes every F3 tile of block
+//     k, then every F1 tile of block k+1 once the F3 tiles it reads are
+//     done; `out` passes from the one to the other through L2 (14.7 MB at
+//     the flagship against the H100's 50 MB) and is still written, since the
+//     backward reads it. F1 reads every channel of `out` at t +- d0n, so
+//     keeping a window of it in shared memory would need 224 x 320 bf16 (140
+//     KB) next to conv_wg's 207 KB ring. Its tiles, products, epilogues and
+//     sums are f3_wg's and f1_wg's, so out, y0n and s0n equal those of
+//     cbt_f3_wg then cbt_f1_wg (the wgmma pair) bit for bit. It saves the
+//     pair's second launch and wave tail and F1's read of `out` from HBM.
+//   * f32, and bf16 outside the rule (cbt_f31_f32/_bf16, the first port): a
+//     block owns 64 times of one recording across all C channels, recomputes
+//     F3 over its window of 64 + 2 d0n rows (two 64-row passes of the tap3
+//     tile, so F3's work doubles for every d0n <= 32), keeps that window of
+//     `out` in shared memory in dt (zero outside the recording), writes its
+//     own 64 rows to `out`, then runs F1's conv on the window. Both convs go
+//     through tap3::Tile with the tap3 entries' chunk walk and tap order,
+//     and the sums through the same per-(recording, tile) partials and
+//     reduce_parts, so out, y0n and s0n equal those of cbt_f3 then cbt_f1
+//     (the tap3 pair) bit for bit.
+// Bound: operations, as the split pair (28.3 + 14.2 GFLOP at the flagship).
 //
 // C interface (ctypes): pointers and the stream as void*; each entry returns
 // the first non-zero cudaError_t of its launches. `part` is f32 scratch of
@@ -102,14 +112,20 @@ using tap3::TN;
 
 // kStats: the epilogue's per-channel sums go to `part`; kUnguarded: the wgmma
 // body may run it without a guard where a whole warp lies inside the output
-template <typename T>
+// kCoherent (K7's wgmma route): the skip was written by other blocks of the
+// same launch, so it is read with plain loads (ordered after those writes by
+// the reading thread's acquire), not through the read-only path
+template <typename T, bool kCoherent = false>
 struct F1 {
   static constexpr bool kStats = true, kUnguarded = true;
   const float* bias; const T* skip; T* y; int T_, C;
   __device__ void operator()(int b, int t, int c, float v, float, float& s0, float& s1) const {
     const size_t i = ((size_t)b * T_ + t) * C + c;
     v += tap3::ldg(bias + c);
-    if (skip) v += tap3::ldg(skip + i);
+    if constexpr (kCoherent)
+      v += to_f(skip[i]);
+    else if (skip)
+      v += tap3::ldg(skip + i);
     const T yc = from_f<T>(v);
     y[i] = yc;
     const float f = to_f(yc);
@@ -425,8 +441,11 @@ int f31(const void* y1, const void* mi1, const void* gb1, const void* w2, const 
 // gives. Thread (g, r) takes channels 8g .. 8g + 7 of rows r, r + R, ...,
 // 16 bytes a row, so it loads its channels' BatchNorm constants once.
 __global__ void __launch_bounds__(256) bn_gelu_kernel(const bf16* __restrict__ y, const float* mi, const float* gb,
-                                                      bf16* __restrict__ h, long long rows, int C) {
+                                                      bf16* __restrict__ h, long long rows, int C, int* zero,
+                                                      int nzero) {
   const int C8 = C / 8, per = blockDim.x / C8, g = threadIdx.x % C8, r0 = threadIdx.x / C8;
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < nzero; i += blockDim.x) zero[i] = 0;
   tap3::BnConst k[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) k[q] = tap3::bn_const<bf16>(mi, gb, C, 8 * g + q);
@@ -442,8 +461,9 @@ __global__ void __launch_bounds__(256) bn_gelu_kernel(const bf16* __restrict__ y
   }
 }
 
+// zero: nzero ints set to 0 on the way (K7's sync words, ahead of its walk)
 int bn_gelu(const void* y, const void* mi, const void* gb, void* h, int B, int Tlen, int C, int sms,
-            cudaStream_t st) {
+            cudaStream_t st, int* zero = nullptr, int nzero = 0) {
   const long long rows = (long long)B * Tlen;
   const int C8 = C / 8;
   if (rows == 0 || C8 == 0) return (int)cudaSuccess;
@@ -451,7 +471,8 @@ int bn_gelu(const void* y, const void* mi, const void* gb, void* h, int B, int T
   const int per = 256 / C8;
   const long long blocks = (rows + per - 1) / per;
   const int grid = (int)(blocks < 8LL * sms ? blocks : 8LL * sms);
-  bn_gelu_kernel<<<grid, per * C8, 0, st>>>((const bf16*)y, (const float*)mi, (const float*)gb, (bf16*)h, rows, C);
+  bn_gelu_kernel<<<grid, per * C8, 0, st>>>((const bf16*)y, (const float*)mi, (const float*)gb, (bf16*)h, rows, C,
+                                            zero, nzero);
   return (int)cudaGetLastError();
 }
 
@@ -540,6 +561,159 @@ int f3_wg(const void* y1, const void* mi1, const void* gb1, const void* w2g, con
           int B, int Tlen, int C, int sms, cudaStream_t st) {
   CHECK(bn_gelu(y1, mi1, gb1, h1, B, Tlen, C, sms, st));
   return conv_wg<2>(h1, C, w2g, F3<bf16>{(const float*)b2, (bf16*)out, Tlen, C}, nullptr, B, Tlen, C, 2, sms, st);
+}
+
+// ---- K7 on the bf16 route: F3's and F1's tiles in one persistent conv_wg walk ----
+
+// K7's sync words, ints after its partials in the scratch (zeroed before
+// every launch): the clock64 cycles producers spent waiting for F3 tiles
+// (u64, 8-byte aligned), the claim counter, the number of waits, then per
+// (recording, time tile) the F3 column tiles done
+namespace f31s {
+constexpr int CYCLES = 0, CLAIM = 2, WAITS = 3, READY = 4;
+inline int words(int B, int t_tiles) { return READY + B * t_tiles; }
+}  // namespace f31s
+
+// the time tiles lo .. hi of `out` that F1's tile tt reads: rows tt TM - d0n
+// .. (tt + 1) TM + d0n - 1 inside [0, T) (the tensor map reads the rest as
+// zero, F1's 'SAME' padding); d0n <= 16 < TM, so at most tt - 1 .. tt + 1
+__device__ __forceinline__ void f1_reads(int tt, int Tlen, int d0n, int& lo, int& hi) {
+  lo = max(0, tt * wg::TM - d0n) / wg::TM;
+  hi = (min(Tlen, (tt + 1) * wg::TM + d0n) - 1) / wg::TM;
+}
+
+// Tiles 0 .. n3 - 1 are F3's (co3 packed-column tiles of h1's GLU conv, then
+// time tiles, then recordings, as f3_wg's conv_wg walks them), tiles n3 ..
+// tiles - 1 F1's (co1 column tiles of the conv of `out` with w0n, likewise).
+// Every product, epilogue and sum is f3_wg's or f1_wg's, so out, y0n and the
+// partials are theirs bit for bit. What differs is the walk:
+//   * The producer thread claims each tile from one counter of the launch
+//     (not by blockIdx) and passes its index to the consumers with its first
+//     stage. A block only ever waits for tiles claimed before its own, by
+//     blocks that are running, so the walk needs no co-residency. Every F3
+//     tile comes before every F1 tile, so F1 tiles all but never wait (an
+//     interleave of recordings made them wait, and was slower: PERF.md).
+//   * An F1 tile reads F3's `out` through TMA (the async proxy) after other
+//     blocks wrote it with generic stores. Writer: the F3 tile's stores, a
+//     barrier of the consumer warpgroups, then one thread's
+//     fence.proxy.async.global and a release add to ready[b, tt]. Reader:
+//     the producer polls ready[b, lo .. hi] with acquire loads until all co3
+//     column tiles are done, fences the proxies, then loads. It blocks while
+//     its own consumers may still run earlier tiles; that is safe because
+//     the tile it waits for was claimed after every tile it depends on.
+//   * F1's epilogue adds the skip, `out`, with generic loads: f1_wg's F1
+//     reads it through ld.global.nc, undefined for data the same launch
+//     writes, so here F1<bf16, true> reads it with plain loads, ordered after
+//     F3's stores by each consumer thread's own acquire of ready[b, tt].
+// Both epilogues (the GLU without sums, F1 with) live in one kernel under
+// conv_wg's 416-thread, one-block-an-SM bounds, so its register cap; `nvcc
+// -Xptxas -v` reports its spills (PERF.md). The four tensor maps (h1, glu_pack
+// (w2), out, pack_weights(w0n)) have conv_wg's boxes, 192 x 64 and 160 x 64,
+// and are __grid_constant__ parameters as in conv_wg_kernel. The sync words
+// are zeroed by the BN·GELU pass ahead of every launch, so a second call on
+// the same scratch gives the same bits.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+f31_wg_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap w2map,
+              const __grid_constant__ CUtensorMap omap, const __grid_constant__ CUtensorMap w0map,
+              const F3<bf16> epi3, const F1<bf16, true> epi1, float* __restrict__ part, int* sync, int Tlen,
+              int C, int d0n, int chunks, int co3, int co1, int t_tiles, int n3, int tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = ring_init(smem_raw);
+  const int wg_ = threadIdx.x / 128;
+  int* ready = sync + f31s::READY;
+  if (wg_ == wg::CONSUMERS) {  // producer warp: one thread claims every tile and issues its loads
+    if (threadIdx.x == wg::CONSUMERS * 128) {
+      int k = 0, waits = 0;
+      unsigned long long waited = 0;
+      for (int tile = atomicAdd(sync + f31s::CLAIM, 1); tile < tiles; tile = atomicAdd(sync + f31s::CLAIM, 1)) {
+        if (tile < n3) {
+          load_tile(r, &hmap, &w2map, tile % co3 * wg::TN, tile / co3 % t_tiles * wg::TM, tile / (co3 * t_tiles), 2,
+                    chunks, k, tile);
+          continue;
+        }
+        const int f = tile - n3, tt = f / co1 % t_tiles, b = f / (co1 * t_tiles);
+        int lo, hi;
+        f1_reads(tt, Tlen, d0n, lo, hi);
+        for (int q = lo; q <= hi; ++q) {
+          const int* done = ready + b * t_tiles + q;
+          if (hopper::ld_acquire(done) >= co3) continue;
+          const long long start = clock64();
+          while (hopper::ld_acquire(done) < co3) {
+            if (clock64() - start > (1LL << 35)) __trap();  // a fault, not a wait: do not hold the card
+            __nanosleep(64);
+          }
+          waited += clock64() - start;
+          ++waits;
+        }
+        hopper::fence_proxy_async_global();
+        load_tile(r, &omap, &w0map, f % co1 * wg::TN, tt * wg::TM, b, d0n, chunks, k, tile);
+      }
+      // the end: one stage without loads whose index -1 stops the consumers
+      const int st = k % wg::STAGES;
+      if (k >= wg::STAGES) hopper::mbar_wait(&r.empty[st], (k / wg::STAGES - 1) & 1);
+      r.tile[st] = -1;
+      hopper::mbar_arrive(&r.full[st]);
+      if (waits) {
+        atomicAdd(reinterpret_cast<unsigned long long*>(sync + f31s::CYCLES), waited);
+        atomicAdd(sync + f31s::WAITS, waits);
+      }
+    }
+    return;
+  }
+
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  float acc[wg::TN / 2];
+  int k = 0, it = 0;
+  for (;;) {
+    const int st = k % wg::STAGES;
+    hopper::mbar_wait(&r.full[st], (k / wg::STAGES) & 1);  // mma_tile's first wait then passes at once
+    const int tile = r.tile[st];
+    if (tile < 0) break;
+    mma_tile(r, acc, 3 * chunks, wg_, lane, k);
+    if (tile < n3) {
+      const int tt = tile / co3 % t_tiles, b = tile / (co3 * t_tiles);
+      store_tile<2>(epi3, acc, nullptr, nullptr, wg_, w, lane, tile % co3 * wg::TN, tt, b, Tlen, C, t_tiles);
+      consumers_sync();  // every store of `out` in this tile is made
+      if (threadIdx.x == 0) {
+        hopper::fence_proxy_async_global();
+        hopper::red_release_add(ready + b * t_tiles + tt, 1);
+      }
+    } else {
+      const int f = tile - n3, tt = f / co1 % t_tiles, b = f / (co1 * t_tiles);
+      hopper::ld_acquire(ready + b * t_tiles + tt);  // already co3 (the producer waited): orders the skip's loads
+      store_tile<1>(epi1, acc, r.red + (it++ & 1) * wg::RED, part, wg_, w, lane, f % co1 * wg::TN, tt, b, Tlen, C,
+                    t_tiles);
+    }
+  }
+}
+
+// K7's wgmma route: h1 = BN·GELU(y1) (the pass f3_wg runs), the merged walk,
+// then the reduction of F1's partials (f1_wg's); sync: f31s::words ints,
+// 8-byte aligned
+int f31_wg(const void* y1, const void* mi1, const void* gb1, const void* w2g, const void* b2, const void* w0k,
+           const void* b0n, void* h1, void* out, void* y0n, float* part, int* sync, float* s0n, int B, int Tlen,
+           int C, int d0n, int sms, cudaStream_t st) {
+  const int t_tiles = wg::t_tiles(Tlen);
+  if ((long long)B * Tlen > 0 && C > 0) {
+    CUtensorMap hmap, w2map, omap, w0map;
+    if ((uintptr_t)sync % 8 != 0 || !hopper::make_map_bf16(&hmap, h1, C, Tlen, B, wg::TM) ||
+        !hopper::make_map_bf16(&w2map, w2g, C, 2 * C, 3, wg::TN) ||
+        !hopper::make_map_bf16(&omap, out, C, Tlen, B, wg::TM) ||
+        !hopper::make_map_bf16(&w0map, w0k, C, C, 3, wg::TN))
+      return (int)cudaErrorInvalidValue;
+    const int co3 = (2 * C + wg::TN - 1) / wg::TN, co1 = (C + wg::TN - 1) / wg::TN;
+    const long long n3 = (long long)co3 * t_tiles * B, tiles = n3 + (long long)co1 * t_tiles * B;
+    if (tiles + sms > 0x7fffffff) return (int)cudaErrorInvalidValue;  // every producer claims once past the end
+    CHECK(bn_gelu(y1, mi1, gb1, h1, B, Tlen, C, sms, st, sync, f31s::words(B, t_tiles)));
+    CHECK((int)cudaFuncSetAttribute(f31_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wg::SMEM));
+    const int grid = (int)(tiles < sms ? tiles : sms);
+    f31_wg_kernel<<<grid, wg::THREADS, wg::SMEM, st>>>(
+        hmap, w2map, omap, w0map, F3<bf16>{(const float*)b2, (bf16*)out, Tlen, C},
+        F1<bf16, true>{(const float*)b0n, (const bf16*)out, (bf16*)y0n, Tlen, C}, part, sync, Tlen, C, d0n,
+        (C + 63) / 64, co3, co1, t_tiles, (int)n3, (int)tiles);
+    CHECK((int)cudaGetLastError());
+  }
+  return tap3::reduce(part, s0n, B * t_tiles, 2 * C, st);
 }
 
 int b1_wg(const void* dout, const void* y1, const void* mi1, const void* gb1, const void* w2g, const void* b2,
@@ -650,6 +824,15 @@ extern "C" int cbt_f2_wg(const void* y0, const void* mi0, const void* gb0, const
 extern "C" int cbt_f3_wg(const void* y1, const void* mi1, const void* gb1, const void* w2g, const void* b2, void* h1,
                          void* out, int B, int Tlen, int C, int sms, void* st) {
   return f3_wg(y1, mi1, gb1, w2g, b2, h1, out, B, Tlen, C, sms, (cudaStream_t)st);
+}
+// K7's wgmma route (C % 8 == 0, y1 16-byte aligned): w2g glu_pack(w2) (3,
+// 2C, C), w0k pack_weights(w0n) (3, C, C); h1 (B, T, C) scratch; part f32
+// scratch of B * ceil(T / 192) * 2 * C, sync the ints after it
+extern "C" int cbt_f31_wg(const void* y1, const void* mi1, const void* gb1, const void* w2g, const void* b2,
+                          const void* w0k, const void* b0n, void* h1, void* out, void* y0n, void* part, void* sync,
+                          void* s0n, int B, int Tlen, int C, int d0n, int sms, void* st) {
+  return f31_wg(y1, mi1, gb1, w2g, b2, w0k, b0n, h1, out, y0n, (float*)part, (int*)sync, (float*)s0n, B, Tlen, C, d0n,
+                sms, (cudaStream_t)st);
 }
 extern "C" int cbt_b1_wg(const void* dout, const void* y1, const void* mi1, const void* gb1, const void* w2g,
                          const void* b2, const void* w2tk, void* h1, void* dy2, void* du1, void* part, void* db2,

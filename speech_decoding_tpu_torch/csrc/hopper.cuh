@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the bf16 bodies of K2
-// (tap_conv_dw.cu), K5 (tap_conv.cu), K6 (conv_block_train.cu, K5's body
-// with each stage's epilogue), K1 (subject_matmul.cu) and K3
-// (retrieval_ranks.cu): TMA tensor
-// maps and plain bulk copies, an mbarrier ring, and warpgroup matrix
-// multiplies (wgmma) read from shared memory (K1's with A from registers).
+// (tap_conv_dw.cu), K5 (tap_conv.cu), K6 and K7 (conv_block_train.cu, K5's
+// body with each stage's epilogue), K4 (conv_block.cu), K1
+// (subject_matmul.cu) and K3 (retrieval_ranks.cu): TMA tensor maps and plain
+// bulk copies, an mbarrier ring, counters between the blocks of one launch
+// (K7), and warpgroup matrix multiplies (wgmma) read from shared memory
+// (K1's with A from registers).
 //
 // K1 replaces speech_decoding_tpu/ops/pallas/subject_conv.py; its layouts
 // are at the end of this file. K2 and K5 replace Pallas TPU kernels of
@@ -120,6 +121,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
       ::"r"(smem_addr(dst)), "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- device: counters between the blocks of one launch ----------------------------
+
+// make this thread's generic-proxy accesses of global memory and its later
+// async-proxy (TMA) ones ordered, both ways
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// *p += v at gpu scope, releasing every write this thread has made or seen
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// *p at gpu scope, acquiring the writes released before the value it reads
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
 // ---- device: wgmma --------------------------------------------------------------

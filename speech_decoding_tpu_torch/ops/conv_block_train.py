@@ -24,10 +24,16 @@ and B2 take x̂ in dt, B2 and B3 recompute the x̂ of dy in f32; every dy is
 cast to dt before its dW; the variance is E[y²] − mean² in f32.
 
 K7, ``f31``, is F3 of block k merged with F1 of block k + 1 (the JAX
-package's ``tools/bench_cross_block_merge.py`` experiment): one kernel
-keeps a window of ``out`` in shared memory for the next conv; ``f31_plain``
-is ``f3_plain`` then ``f1_plain``. It runs in
-``tools/bench_cross_block_merge.py`` of the port, never in the train step.
+package's ``tools/bench_cross_block_merge.py`` experiment); ``f31_plain``
+is ``f3_plain`` then ``f1_plain``. It takes the stages' route rule: on
+``"wgmma"`` one persistent launch walks F3's ``conv_wg`` tiles, then F1's,
+each F1 tile once the F3 tiles it reads are done, with ``out`` passed
+through L2 (bitwise the wgmma pair ``f3`` then ``f1``); on ``"tap3"`` a
+block keeps a window of ``out`` in shared memory for the next conv
+(bitwise the tap3 pair ``f3_tile`` then ``f1_tile``). ``f31.route``
+records the last launch's route; ``f31_tile`` runs the tap3 route in any
+dtype. Both run in ``tools/bench_cross_block_merge.py`` of the port, never
+in the train step.
 
 Each stage function (``f1`` … ``b3``, ``f31``) launches its CUDA kernels
 (``csrc/conv_block_train.cu``) for CUDA tensors and runs its plain version
@@ -74,7 +80,7 @@ _TM = {"wgmma": 192, "tap3": 64}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (pointers, ints) of each C entry before its stream; the tap3 entries come in f32 and bf16
 _TAP3_ARGS = {"f1": (6, 6), "f2": (8, 4), "f3": (6, 3), "b1": (13, 3), "b2": (14, 4), "b3": (9, 6), "f31": (11, 4)}
-_WG_ARGS = {"f1": (6, 7), "f2": (9, 5), "f3": (7, 4), "b1": (13, 4), "b2": (14, 5), "b3": (9, 7)}
+_WG_ARGS = {"f1": (6, 7), "f2": (9, 5), "f3": (7, 4), "b1": (13, 4), "b2": (14, 5), "b3": (9, 7), "f31": (13, 5)}
 # argument types of each C entry, set once when the library loads
 _SIGNATURES = {
     **{f"cbt_{st}_{suf}": [_P] * p + [_I] * i + [_P] for st, (p, i) in _TAP3_ARGS.items() for suf in ("f32", "bf16")},
@@ -250,6 +256,36 @@ def _part(B: int, T: int, C: int, dev, route: str) -> torch.Tensor:
     return _empty(dev, _part_elems(B, T, C, route))
 
 
+# K7's sync words after its partials (csrc/conv_block_train.cu f31s): a u64
+# of wait cycles, the claim counter, the wait count, then one ready counter
+# per (recording, time tile)
+_F31_READY = 4
+
+
+def _f31_scratch_elems(B: int, T: int, C: int) -> int:
+    """f32 elements of K7's wgmma scratch: the wgmma route's partials, then
+    its sync words (ints; the partials' count is even, so the u64 lies on
+    8 bytes)."""
+    return _part_elems(B, T, C, "wgmma") + _F31_READY + B * -(-T // _TM["wgmma"])
+
+
+def _f31_reads(tt: int, T: int, d0n: int) -> range:
+    """The time tiles of ``out`` that K7's F1 tile ``tt`` reads on the wgmma
+    route (``f1_reads`` in the CUDA source): rows tt·TM − d0n ..
+    (tt + 1)·TM + d0n − 1 that lie in [0, T)."""
+    tm = _TM["wgmma"]
+    return range(max(0, tt * tm - d0n) // tm, (min(T, (tt + 1) * tm + d0n) - 1) // tm + 1)
+
+
+def _f31_order(B: int, T: int, C: int):
+    """K7's tiles on the wgmma route in the order the launch claims them:
+    ("F3", b, tt, column tile) for the 2C packed GLU columns, then ("F1", b,
+    tt, column tile) for C; column tile fastest, then time tile."""
+    tn, tt_n = 160, -(-T // _TM["wgmma"])
+    return [(st, b, tt, co) for st, cols in (("F3", 2 * C), ("F1", C))
+            for b in range(B) for tt in range(tt_n) for co in range(-(-cols // tn))]
+
+
 def _fast_path(dt, C: int, *vec: torch.Tensor) -> bool:
     """The wgmma route's rule: bf16, C a multiple of 8 (TMA's 16-byte rows
     of h, dy and the packed weights) and at most 2048 (a pointwise pass's
@@ -349,15 +385,30 @@ def _f3_launch(y1, mi1, gb1, w2, b2, tile=False):
     return out
 
 
-def _f31_launch(y1, mi1, gb1, w2, b2, w0n, b0n, k_next):
+def _f31_route(tile: bool, dt, C: int, y1: torch.Tensor) -> str:
+    """K7's route: the stages' rule (``_fast_path``; y1 is what the BN·GELU
+    pass reads), tap3 whatever the dtype for ``f31_tile``."""
+    return "wgmma" if not tile and _fast_path(dt, C, y1) else "tap3"
+
+
+def _f31_launch(y1, mi1, gb1, w2, b2, w0n, b0n, k_next, tile=False):
     d0n = next_conv0_dilation(k_next)
     B, T, C = y1.shape
     dt, dev, f32 = y1.dtype, y1.device, torch.float32
     _check("F31", dt, dev, [(y1, (B, T, C), dt), (mi1, (2, C), f32), (gb1, (2, C), f32), (w2, (3, C, 2 * C), dt),
                             (b2, (2 * C,), f32), (w0n, (3, C, C), dt), (b0n, (C,), f32)])
     out, y0n, s0n = _empty(dev, B, T, C, dtype=dt), _empty(dev, B, T, C, dtype=dt), _empty(dev, 2, C)
-    _run(f"cbt_f31_{_DTYPES[dt]}", "F31", [y1, mi1, gb1, w2, b2, w0n, b0n, out, y0n, _part(B, T, C, dev, "tap3"), s0n],
-         [B, T, C, d0n], dev)
+    f31.route = _f31_route(tile, dt, C, y1)
+    if f31.route == "wgmma":
+        scratch = _empty(dev, _f31_scratch_elems(B, T, C))
+        n_part = _part_elems(B, T, C, "wgmma")
+        f31.sync = scratch[n_part:]
+        _run("cbt_f31_wg", "F31", [y1, mi1, gb1, glu_pack(w2), b2, pack_weights(w0n), b0n,
+                                   _empty(dev, B, T, C, dtype=dt), out, y0n, scratch, f31.sync, s0n],
+             [B, T, C, d0n, _sms(dev)], dev)
+    else:
+        _run(f"cbt_f31_{_DTYPES[dt]}", "F31", [y1, mi1, gb1, w2, b2, w0n, b0n, out, y0n,
+                                               _part(B, T, C, dev, "tap3"), s0n], [B, T, C, d0n], dev)
     return out, y0n, s0n
 
 
@@ -441,6 +492,20 @@ TILE = {st: _stage(f"{st}_tile", functools.partial(_LAUNCH[st], tile=True), PLAI
         for st in _LAUNCH}
 f3_tile, f1_tile = TILE["F3"], TILE["F1"]
 f31 = _stage("F31", _f31_launch, f31_plain, kernel="K7")
+f31.route = None  # the route of the last K7 launch (f31 or f31_tile): "wgmma" or "tap3"
+f31.sync = None  # the last wgmma launch's sync words (f32 storage of ints; ``f31_wait_stats`` reads them)
+# K7 on the tap3 route whatever the dtype: bitwise the tap3 pair f3_tile then f1_tile
+f31_tile = _stage("F31_tile", functools.partial(_f31_launch, tile=True), f31_plain, kernel="K7 on tap3")
+
+
+def f31_wait_stats() -> dict:
+    """The last wgmma K7 launch's counters (synchronises): tiles claimed
+    (every tile, plus one claim past the end by each block), F1 tiles'
+    waits for F3 tiles that were not done, and the clock64 cycles those
+    waits took, summed over blocks."""
+    w = f31.sync
+    return {"claims": int(w[2:3].view(torch.int32)), "waits": int(w[3:4].view(torch.int32)),
+            "wait_cycles": int(w[0:2].view(torch.int64))}
 
 
 def stage_inputs(B: int, T: int, Cin: int, C: int, k: int, dtype, device, generator: torch.Generator):

@@ -3,8 +3,9 @@ on CPU tensors at small widths: the GLU-interleaved K-major packing of w2
 (``glu_pack``) and its inverse, the 270 → 272-channel x that F1's conv and
 B3's K2 launch share (``x_padded``) and B3's 270-channel dx from packed w0ᵀ,
 the partial-sum scratch against each route's tile, the route rule, the tap3
-stages that stay K7's bitwise partner, and every ``_SIGNATURES`` list
-against its C declaration in ``csrc/conv_block_train.cu``. Convs here are
+stages that stay K7's bitwise partner, K7's route rule, scratch and tile
+walk (which F3 tiles each F1 tile reads, all claimed before it), and every
+``_SIGNATURES`` list against its C declaration in ``csrc/conv_block_train.cu``. Convs here are
 the plain version (``tap_conv_plain``) on the prepared operands, sliced
 back, held against the plain version on the originals (f32, rtol and atol
 1e-5: sums of ~100 products of order 1)."""
@@ -200,3 +201,84 @@ def test_ctypes_signatures_match_the_c_entries(name):
     assert name in entries, name
     assert [kind[p] for p in entries[name]] == cbt._SIGNATURES[name], (name, entries[name])
     assert sorted(entries) == sorted(cbt._SIGNATURES)
+
+
+# -- K7 (f31): the route rule, the scratch and the tile walk of the wgmma route --------
+
+
+def test_f31_route_rule():
+    """K7 takes the stages' rule on y1 (bf16, C % 8 == 0, C <= 2048, y1
+    16-byte aligned); f31_tile is tap3 whatever it is given."""
+    bf16 = torch.bfloat16
+    y = torch.zeros(2, 4, 16, dtype=bf16)
+    assert cbt._f31_route(False, bf16, 16, y) == "wgmma"
+    assert cbt._f31_route(True, bf16, 16, y) == "tap3"
+    assert cbt._f31_route(False, torch.float32, 16, y.float()) == "tap3"
+    assert cbt._f31_route(True, torch.float32, 16, y.float()) == "tap3"
+    assert cbt._f31_route(False, bf16, 20, torch.zeros(2, 4, 20, dtype=bf16)) == "tap3"
+    assert cbt._f31_route(False, bf16, 2056, torch.zeros(1, 1, 2056, dtype=bf16)) == "tap3"
+    flat = torch.zeros(2 * 4 * 16 + 1, dtype=bf16)
+    assert cbt._f31_route(False, bf16, 16, flat[1:].view(2, 4, 16)) == "tap3"
+
+
+@pytest.mark.parametrize("B,T,C", [(64, 360, 320), (3, 37, 320), (3, 400, 320), (1, 1, 8)])
+def test_f31_scratch_sizing(B, T, C):
+    """K7's wgmma scratch: the wgmma route's partials (F1's two sums per
+    (recording, 192-row tile)), then the sync words: a u64 of wait cycles on
+    8 bytes, the claim counter, the wait count and one ready counter per
+    (recording, time tile)."""
+    n_part = cbt._part_elems(B, T, C, "wgmma")
+    t_tiles = -(-T // 192)
+    assert n_part >= B * t_tiles * 2 * C and n_part % 2 == 0
+    assert cbt._f31_scratch_elems(B, T, C) == n_part + 4 + B * t_tiles
+
+
+def test_f31_constants_match_the_cuda_sources():
+    """The sync words' layout follows f31s in conv_block_train.cu, and the
+    claim order's column tiles are conv_wg.cuh's wg::TN packed columns."""
+    with open(os.path.join(_build.SRC_DIR, "conv_block_train.cu")) as f:
+        f31s = f.read().split("namespace f31s {")[1].split("}  // namespace f31s")[0]
+    assert "constexpr int CYCLES = 0, CLAIM = 2, WAITS = 3, READY = 4;" in f31s and cbt._F31_READY == 4
+    with open(os.path.join(_build.SRC_DIR, "conv_wg.cuh")) as f:
+        wg = f.read().split("namespace wg {")[1].split("}  // namespace wg")[0]
+    tn = int(re.search(r"constexpr int TN = (\d+);", wg).group(1))
+    order = cbt._f31_order(1, 1, 320)
+    assert sum(t[0] == "F3" for t in order) == -(-640 // tn) and sum(t[0] == "F1" for t in order) == -(-320 // tn)
+
+
+@pytest.mark.parametrize("T", [37, 192, 360, 400])
+@pytest.mark.parametrize("d0n", [2, 4, 8, 16])
+def test_f31_dependency_rule(d0n, T):
+    """F1's tile tt reads the time tiles of `out` that hold a row one of its
+    three taps reads inside [0, T) (at most tt - 1 .. tt + 1); every F3
+    tile of those (all column tiles) is claimed before it, and every tile is
+    claimed once."""
+    B, C, tm = 2, 320, cbt._TM["wgmma"]
+    t_tiles, co3, co1 = -(-T // tm), 4, 2
+    order = cbt._f31_order(B, T, C)
+    want = [("F3", b, tt, co) for b in range(B) for tt in range(t_tiles) for co in range(co3)]
+    want += [("F1", b, tt, co) for b in range(B) for tt in range(t_tiles) for co in range(co1)]
+    assert len(order) == len(set(order)) and sorted(order) == sorted(want)
+    pos = {tile: i for i, tile in enumerate(order)}
+    for st, b, tt, co in order:
+        if st != "F1":
+            continue
+        rows = {t for j in range(3) for t in range(tt * tm + (j - 1) * d0n, (tt + 1) * tm + (j - 1) * d0n)
+                if 0 <= t < T}
+        reads = cbt._f31_reads(tt, T, d0n)
+        assert list(reads) == sorted({t // tm for t in rows})
+        assert tt in reads and reads[0] >= tt - 1 and reads[-1] <= tt + 1
+        assert all(pos[("F3", b, q, c)] < pos[(st, b, tt, co)] for q in reads for c in range(co3))
+    if T == 400:  # three time tiles: the middle one waits on both neighbours
+        assert list(cbt._f31_reads(1, T, d0n)) == [0, 1, 2]
+
+
+def test_f31_and_f31_tile_take_the_plain_version_on_the_cpu():
+    """Both K7 wrappers run f31_plain for CPU tensors and count nothing."""
+    ins = cbt.stage_inputs(2, 9, 16, 16, 1, torch.float32, "cpu", torch.Generator().manual_seed(2))
+    args = (*ins["F3"], *ins["F1"][1:3], 1)
+    before = (cbt.f31.launches, cbt.f31_tile.launches)
+    want = cbt.f31_plain(*args)
+    for fn in (cbt.f31, cbt.f31_tile):
+        assert all(torch.equal(a, b) for a, b in zip(fn(*args), want))
+    assert (cbt.f31.launches, cbt.f31_tile.launches) == before and cbt.f31.route is None

@@ -758,34 +758,115 @@ def _f31_inputs(B, T, k_next, dtype, dev, seed):
     return (*ins["F3"], *ins["F1"][1:3], k_next)
 
 
+def _pair(args, f3, f1):
+    out = f3(*args[:5])
+    return (out, *f1(out, args[5], args[6], args[7]))
+
+
 @pytest.mark.parametrize("k_next", [1, 2, 3, 4])
 @pytest.mark.parametrize("dtype,B,T", [(torch.bfloat16, 8, 360), (torch.float32, 2, 360), (torch.float32, 3, 37),
                                        (torch.bfloat16, 3, 37)])
 def test_f31_kernel(dev, k_next, dtype, B, T):
     """K7 against its plain version (out and y0n as activations, s0n at 1e-4
-    (f32) or 1e-3 (bf16) of its largest entry), against the tap3 pair
-    f3_tile then f1_tile: out and y0n bitwise, s0n within rtol 1e-6, and
-    each half against the stage on the same inputs (the wgmma route in bf16)
-    at the plain version's tolerances: out against F3, y0n and s0n against
-    F1 on K7's own out. T=37 with d0n=16 (k_next=2) puts the window past
-    both edges of the recording."""
+    (f32) or 1e-3 (bf16) of its largest entry) and against the K6 pair of
+    its route on the same inputs: bf16 takes the wgmma route, bitwise the
+    wgmma pair f3 then f1 (out, y0n and s0n); f32 the tap3 route, bitwise
+    the tap3 pair f3_tile then f1_tile in out and y0n, s0n within rtol 1e-6.
+    T=37 with d0n=16 (k_next=2) puts the reads past both edges of the
+    recording."""
     args = _f31_inputs(B, T, k_next, dtype, dev, 7 * k_next + B)
     before = cbt.f31.launches
     out, y0n, s0n = cbt.f31(*args)
     assert cbt.f31.launches == before + 1
+    route = cbt.f31.route
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "tap3")
     rel = 1e-4 if dtype == torch.float32 else 1e-3
     _k6_close((out, y0n, s0n), cbt.f31_plain(*args), rel)
-    o_split = cbt.f3_tile(*args[:5])
-    y_split, s_split = cbt.f1_tile(o_split, args[5], args[6], k_next)
+    o_p, y_p, s_p = _pair(args, cbt.f3, cbt.f1) if route == "wgmma" else _pair(args, cbt.f3_tile, cbt.f1_tile)
     torch.cuda.synchronize()
-    assert torch.equal(out, o_split) and torch.equal(y0n, y_split)
-    torch.testing.assert_close(s0n, s_split, rtol=1e-6, atol=0.0)
-    _k6_close((out, y0n, s0n), (cbt.f3(*args[:5]), *cbt.f1(out, args[5], args[6], k_next)), rel)
+    assert torch.equal(out, o_p) and torch.equal(y0n, y_p)
+    torch.testing.assert_close(s0n, s_p, rtol=0.0 if route == "wgmma" else 1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("B,T,k_next", [(64, 360, 1), (64, 360, 2), (64, 360, 3), (64, 360, 4), (3, 37, 2),
+                                        (3, 400, 2), (3, 400, 3)])
+def test_f31_wgmma_is_the_wgmma_pair_bitwise(dev, B, T, k_next):
+    """The merged walk at the flagship for every boundary, at T=37 (one time
+    tile, d0n=16 past both edges) and at T=400 (three time tiles: the middle
+    one's F1 reads both neighbours' F3 tiles): the wgmma route, out, y0n and
+    s0n bitwise f3 then f1, and each half within tolerance of its plain
+    stage: out of f3_plain, y0n and s0n of f1_plain on K7's own out (on
+    f3_plain's out, each flipped bf16 rounding of out would reach y0n
+    through the skip, where y0n can cancel to near zero)."""
+    args = _f31_inputs(B, T, k_next, torch.bfloat16, dev, 11 * k_next + T)
+    got = cbt.f31(*args)
+    assert cbt.f31.route == "wgmma"
+    want = _pair(args, cbt.f3, cbt.f1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _k6_close(got[0], cbt.f3_plain(*args[:5]), 1e-3)
+    _k6_close(got[1:], cbt.f1_plain(got[0], args[5], args[6], k_next), 1e-3)
+
+
+def test_f31_wgmma_repeats_on_the_same_scratch(dev):
+    """Two calls give the same bits although the second call's scratch is
+    the first's memory filled with garbage: the claim and ready counters are
+    zeroed for every launch. After each, the claim counter holds every tile
+    plus one claim past the end by each block."""
+    B, T, C = 64, 360, 320
+    args = _f31_inputs(B, T, 2, torch.bfloat16, dev, 2)
+    a = cbt.f31(*args)
+    first = cbt.f31_wait_stats()
+    n = cbt._f31_scratch_elems(B, T, C)
+    cbt.f31.sync = None
+    torch.full((n,), -7.0, device=dev)  # freed at once: the next scratch of this size is likely this memory
+    b = cbt.f31(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    tiles = len(cbt._f31_order(B, T, C))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert first["claims"] == cbt.f31_wait_stats()["claims"] == tiles + min(tiles, sms)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,k_next", [(360, 1), (37, 2)])
+def test_f31_tile_is_the_tap3_pair(dev, dtype, T, k_next):
+    """f31_tile runs the tap3 route in any dtype: bitwise the tap3 pair in
+    out and y0n, s0n within rtol 1e-6, and within tolerance of plain."""
+    args = _f31_inputs(3, T, k_next, dtype, dev, 5 + k_next)
+    before = cbt.f31_tile.launches
+    got = cbt.f31_tile(*args)
+    assert cbt.f31_tile.launches == before + 1 and cbt.f31.route == "tap3"
+    o_s, y_s, s_s = _pair(args, cbt.f3_tile, cbt.f1_tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], o_s) and torch.equal(got[1], y_s)
+    torch.testing.assert_close(got[2], s_s, rtol=1e-6, atol=0.0)
+    _k6_close(got, cbt.f31_plain(*args), 1e-4 if dtype == torch.float32 else 1e-3)
+
+
+def test_f31_outside_the_rule_takes_tap3(dev):
+    """bf16 with C = 20 (not a multiple of 8) or a y1 whose base is not
+    16-byte aligned takes the tap3 route and still matches the tap3 pair."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    ins = cbt.stage_inputs(3, 37, 20, 20, 1, torch.bfloat16, dev, g)
+    odd = (*ins["F3"], *ins["F1"][1:3], 1)
+    args = list(_f31_inputs(3, 37, 1, torch.bfloat16, dev, 9))
+    y1 = args[0]
+    args[0] = torch.zeros(y1.numel() + 1, device=dev, dtype=y1.dtype)[1:].view(y1.shape).copy_(y1)
+    assert args[0].data_ptr() % 16
+    for a in (odd, tuple(args)):
+        got = cbt.f31(*a)
+        assert cbt.f31.route == "tap3"
+        o_s, y_s, s_s = _pair(a, cbt.f3_tile, cbt.f1_tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], o_s) and torch.equal(got[1], y_s)
+        _k6_close(got, cbt.f31_plain(*a), 1e-3)
 
 
 def test_f31_is_deterministic_and_rejects(dev):
     args = _f31_inputs(8, 360, 2, torch.bfloat16, dev, 1)
     a, b = cbt.f31(*args), cbt.f31(*args)
+    assert cbt.f31.route == "wgmma"
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError, match="k_next"):
