@@ -87,6 +87,27 @@ What it does, in order (one JSON object per line on stdout):
      from the same weights, batch and drop mask: loss, temperature, every
      parameter gradient and the new BN running statistics must agree; once
      through the module blocks and once with ``fused_blocks=True`` (K6);
+  8b-8d. the data-preparation path at full width, with TF32 at PyTorch's
+     defaults (cuDNN's on), run before any profiler trace slows the host;
+     no hand-written kernel lies on it, so the launch counters, set to 0
+     just before each phase and read just after, must stay 0 except for the
+     bank's decode; each phase prints its peak device memory:
+     ``preproc``: two (208, 48,000) recordings at 1 kHz band-passed 1-60 Hz
+     and resampled to 120 Hz by ``preprocess_batch`` on the card against the
+     port's own CPU run (fused and exact-grid routes) and the exact route
+     against the scipy host twin ``preprocess_host``; int16 and bf16
+     transfer against f32 on channels 1e-3..1e3 apart; ``preprocess_auto``
+     forced onto the card and split by its measured rates (the probe and the
+     split printed); then ``tools/bench_preproc``: the device-resident rate
+     of the fused and the exact route on 2 x (208, 396,000) and the
+     host-to-host rate per transfer dtype beside the host twin's;
+     ``wav2vec2``: xlsr-53 (315M parameters, seeded random weights), the
+     f32 ``last4_mean`` and ``features`` of 2 x 1 s on the card against the
+     same weights on the CPU, then ``tools/bench_wav2vec`` at batch 16 in
+     bf16 and f32; ``bank_from_audio``: 64 clips of 3 s at 44.1 kHz into a
+     (64, 1024, 360) bank on the card (timed twice), 2 clips against the
+     CPU run in f32, ``set_bank`` on the serving decoder and one decode of
+     16 segments against it (K1 1, K4 5);
   9. the second main path, training: the flagship train step as
      ``bench.py``'s ``build_flagship_step`` sets it up (B=64, bf16,
      channels-last, precomputed collate stats, ``conv_impl=gemm_pdw``)
@@ -145,6 +166,8 @@ What it does, in order (one JSON object per line on stdout):
      (best=True)`` decodes the 64 held-out segments against their Y (K1 and
      K4), its top-10 hit rate within 2/64 of the same orientation computed
      through the eval path from the same checkpoint;
+  13e. xlsr-53's bf16 ``last4_mean`` on 16 x 1 s by CUDA events beside
+     its kernels' device time (``torch.profiler``);
   14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, each with its
      launches by path and device ms; K7 with its body, its bitwise partner
      and its tap3 route), the card line again, and last ``{"ok": true,
@@ -298,6 +321,198 @@ def random_bn_stats(encoder, gen) -> None:
                 bn.var.copy_(0.5 + 1.5 * torch.rand(n, generator=gen))
                 bn.scale.copy_(0.8 + 0.4 * torch.rand(n, generator=gen))
                 bn.bias.copy_(0.1 * torch.randn(n, generator=gen))
+
+
+def data_prep_phases(seed: int, decoder, seg: int, reset_counts, read_counts, expect) -> dict:
+    """Phases 8b-8d: the data-preparation path at full width, with TF32 at
+    PyTorch's defaults (cuDNN on, matmuls off): the port's f32 entry points
+    must stay f32 whatever the flags say. Each phase sets every launch
+    counter to 0 just before and reads them just after (none of the path's
+    work is a hand-written kernel; the bank's decode launches K1 and K4),
+    and prints its peak device memory. ``decoder`` is the flagship serving
+    decoder, whose segments are ``seg`` samples. Returns the launches by
+    path."""
+    import torch
+
+    from speech_decoding_tpu_torch.inference import bank_from_audio
+    from speech_decoding_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+    from speech_decoding_tpu_torch.models.wav2vec_util import FrozenWav2Vec2
+    from speech_decoding_tpu_torch.ops import brain_preproc as bpp
+    from speech_decoding_tpu_torch.ops import preproc_dispatch as ppd
+    from speech_decoding_tpu_torch.ops.brain_preproc_host import preprocess_host, usable_cpus
+    from speech_decoding_tpu_torch.tools import bench_preproc, bench_wav2vec
+
+    def begin():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+
+    def peak_gb(fn):
+        """fn()'s result and the peak device memory (GB) while it ran."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() / 1e9
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    tf32 = {"cudnn.allow_tf32": cudnn.allow_tf32, "cuda.matmul.allow_tf32": matmul.allow_tf32}
+    paths = {}
+    rng = np.random.default_rng(seed + 11)
+    pre = (1000.0, 1.0, 60.0, 120.0)  # 1 kHz, band-pass 1-60 Hz, to 120 Hz
+    try:
+        # -- 8b. preproc: two (208, 48,000) recordings, every route ------------
+        begin()
+        recs = [rng.standard_normal((208, 48_000), dtype=np.float32) for _ in range(2)]
+        t = time.perf_counter()
+        card = {r: bpp.preprocess_batch(recs, *pre, exact_grid=r == "exact") for r in ("fused", "exact")}
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = {r: bpp.preprocess_batch(recs, *pre, exact_grid=r == "exact", device="cpu") for r in card}
+        cpu_s = time.perf_counter() - t
+        host = preprocess_host(recs, *pre)
+        # f32 FFTs on both sides (cuFFT against the CPU's pocketfft or scipy):
+        # the DSP tolerance of the CPU tests, rtol 1e-4 + atol 1e-5 on
+        # unit-variance inputs
+        for j in range(2):
+            for r in card:
+                compare(f"preproc {r} card vs CPU, recording {j} (208, 48000)", torch.from_numpy(card[r][j]),
+                        torch.from_numpy(cpu[r][j]), 1e-5, 1e-4)
+            compare(f"preproc exact card vs host twin (scipy), recording {j}", torch.from_numpy(card["exact"][j]),
+                    torch.from_numpy(host[j]), 1e-5, 1e-4)
+        # quantized transfers against f32 on channels 1e-3..1e3 apart:
+        # |Δ| / max|f32| of the channel within the JAX tests' bounds
+        # (tests/test_ops.py:472-473)
+        amps = (10.0 ** rng.uniform(-3, 3, size=(208, 1))).astype(np.float32)
+        recs_q = [r * amps for r in recs]
+        f32q = bpp.preprocess_batch(recs_q, *pre)
+        quant = {}
+        for dt, bound in (("int16", 2e-4), ("bfloat16", 6e-3)):
+            got = bpp.preprocess_batch(recs_q, *pre, transfer_dtype=dt)
+            quant[dt] = max(float((np.abs(g - a) / np.abs(a).max(axis=-1, keepdims=True)).max())
+                            for g, a in zip(got, f32q))
+            emit(check=f"preproc {dt} transfer vs f32 on the card", max_rel_err=quant[dt], bound=bound,
+                 relative_to="max |f32| of each channel")
+            if not quant[dt] <= bound:
+                raise AssertionError(f"preproc {dt} transfer: {quant[dt]} > {bound}")
+        # the dispatcher: all on the card, then split by measured rates; int16
+        # transfer (its default) against the host twin within the JAX test's
+        # 5e-4 of the largest entry (tests/test_preproc_dispatch.py:128)
+        recs6 = recs + [rng.standard_normal((208, 48_000), dtype=np.float32) for _ in range(4)]
+        host6 = preprocess_host(recs6, *pre)
+        rates = ppd.probe_rates(208, *pre)
+        split, dev_e2e = ppd.route_plan([48.0] * 6, rates, 208, 1000.0, 120.0)
+        auto_err = {}
+        for name, kw in (("force_device", {"force": "device"}), ("measured_rates", {"rates": rates})):
+            outs = ppd.preprocess_auto(recs6, *pre, verbose=False, **kw)
+            auto_err[name] = max(float(np.abs(o - h).max() / np.abs(h).max()) for o, h in zip(outs, host6))
+            if not auto_err[name] < 5e-4 or [o.shape for o in outs] != [h.shape for h in host6]:
+                raise AssertionError(f"preprocess_auto {name}: {auto_err[name]} against the host twin")
+        emit(check="preprocess_auto (int16 transfer) vs host twin", max_rel_err=auto_err, bound=5e-4,
+             probe=rates, device_e2e_model=dev_e2e, host_cpus=usable_cpus(), split=split)
+        checks_gb = torch.cuda.max_memory_allocated() / 1e9
+        fused, fused_gb = peak_gb(bench_preproc.measure_preproc_rate)
+        exact, exact_gb = peak_gb(lambda: bench_preproc.measure_preproc_rate(route="exact"))
+        e2e, e2e_gb = peak_gb(bench_preproc.measure_preproc_e2e)
+        paths["preproc"] = read_counts()
+        emit(phase="preproc", tf32=tf32, checks_card_s=card_s, checks_cpu_s=cpu_s, quantized=quant,
+             rate_fused=fused, rate_exact=exact, e2e=e2e, launches=paths["preproc"],
+             peak_memory_gb={"checks": checks_gb, "rate_fused": fused_gb, "rate_exact": exact_gb, "e2e": e2e_gb})
+        if paths["preproc"] != expect():
+            raise AssertionError(f"preproc launched a kernel: {paths['preproc']}")
+        del card, cpu, host, recs_q, f32q, recs6, host6, outs
+
+        # -- 8c. wav2vec2: xlsr-53 with seeded random weights -------------------
+        begin()
+        cfg = Wav2Vec2Config()
+        model = Wav2Vec2Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 12))
+        model_cpu = Wav2Vec2Model(cfg, device="meta")
+        model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, assign=True)
+        n_params = sum(p.numel() for p in model.parameters())
+        w_card = FrozenWav2Vec2(model, device="cuda")
+        w_cpu = FrozenWav2Vec2(model_cpu, device="cpu")
+        clips = (rng.standard_normal((2, 16_000)) * 0.1).astype(np.float32)
+        embed = {}
+        for name in ("last4_mean", "features"):
+            t = time.perf_counter()
+            got = getattr(w_card, name)(clips)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t
+            t = time.perf_counter()
+            want = getattr(w_cpu, name)(clips)
+            cpu_s = time.perf_counter() - t
+            # f32 on both sides, sums in another order over 24 layers: 2e-4
+            # of the largest entry (the JAX package's full-scale test)
+            bound = 2e-4 * float(want.abs().max())
+            embed[name] = compare(f"wav2vec2 xlsr-53 {name} f32 card vs CPU, 2 x 1 s", got.cpu(), want, bound, 0.0,
+                                  shape=list(got.shape), card_first_call_s=card_s, cpu_s=cpu_s)
+        checks_gb = torch.cuda.max_memory_allocated() / 1e9
+        rate16, rate16_gb = peak_gb(lambda: bench_wav2vec.measure_embed_rate(16, "bfloat16"))
+        rate32, rate32_gb = peak_gb(lambda: bench_wav2vec.measure_embed_rate(16, "float32"))
+        paths["wav2vec2"] = read_counts()
+        emit(phase="wav2vec2", tf32=tf32, config="xlsr-53: 24 layers, hidden 1024, 16 heads, FFN 4096, "
+             "7-layer 512-channel extractor; random weights from a seed", params=n_params, max_abs_err=embed,
+             embed_rate_bf16=rate16, embed_rate_f32=rate32, launches=paths["wav2vec2"],
+             peak_memory_gb={"checks": checks_gb, "rate_bf16": rate16_gb, "rate_f32": rate32_gb})
+        if paths["wav2vec2"] != expect():
+            raise AssertionError(f"wav2vec2 launched a kernel: {paths['wav2vec2']}")
+
+        # -- 8d. bank_from_audio: 64 clips of 3 s at 44.1 kHz -> the serving bank
+        begin()
+        audio = (rng.standard_normal((64, 132_300)) * 0.1).astype(np.float32)
+        build_s = []
+        for _ in range(2):  # the first call includes cuDNN's and cuFFT's plans
+            t = time.perf_counter()
+            bank = bank_from_audio(w_card, audio, 44_100, segment_len=seg)
+            torch.cuda.synchronize()
+            build_s.append(time.perf_counter() - t)
+        if tuple(bank.shape) != (64, cfg.hidden_size, seg) or not bool(torch.isfinite(bank).all()):
+            raise AssertionError(f"bank {tuple(bank.shape)} is not finite (64, {cfg.hidden_size}, {seg})")
+        want = bank_from_audio(w_cpu, audio[:2], 44_100, segment_len=seg, batch_size=2)
+        bank_err = compare("bank_from_audio f32 card vs CPU, clips 0-1", bank[:2].cpu(), want,
+                           2e-4 * float(want.abs().max()), 0.0)
+        decoder.set_bank(bank)
+        Xd = rng.standard_normal((16, 208, seg), dtype=np.float32)
+        scores, ids = decoder.decode(Xd, rng.integers(0, 27, size=16).astype(np.int32), k=10)
+        torch.cuda.synchronize()
+        paths["bank_from_audio"] = read_counts()
+        if not (np.isfinite(scores).all() and ids.shape == (16, 10) and ids.min() >= 0 and ids.max() < 64):
+            raise AssertionError("decode against the audio bank returned bad scores or ids")
+        emit(phase="bank_from_audio", tf32=tf32, clips=64, clip_s=3.0, sample_rate=44_100,
+             bank_shape=list(bank.shape), build_s=build_s, build_clips_per_s=64 / build_s[1],
+             max_abs_err=bank_err, decode_rows=16, launches=paths["bank_from_audio"],
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if paths["bank_from_audio"] != expect(subject_matmul=1, conv_block_fused=5):
+            raise AssertionError(f"bank_from_audio launches: {paths['bank_from_audio']}")
+        del model, model_cpu, w_card, w_cpu, bank
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def wav2vec2_device_timing(seed: int) -> None:
+    """Phase 13e: xlsr-53's bf16 ``last4_mean`` on 16 x 1 s by CUDA events
+    beside its kernels' device time (``torch.profiler``), taken after every
+    host-clock timing as the other device readings are; the difference is
+    the host's share of the call."""
+    import torch
+
+    from speech_decoding_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+    from speech_decoding_tpu_torch.models.wav2vec_util import FrozenWav2Vec2
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    w16 = FrozenWav2Vec2(Wav2Vec2Model(Wav2Vec2Config(), device="cuda", generator=gen), device="cuda",
+                         dtype=torch.bfloat16)
+    wav = torch.randn((16, 16_000), generator=gen, device="cuda") * 0.1
+    ms = time_ms(lambda: w16.last4_mean(wav), reps=10)
+    dev_ms = device_ms(lambda: w16.last4_mean(wav))
+    emit(timing="wav2vec2 xlsr-53 last4_mean bf16, 16 x 1 s", ms=ms, device_ms=dev_ms or "not measured",
+         device_share=dev_ms / ms if dev_ms else "not measured")
 
 
 def main() -> int:
@@ -985,6 +1200,9 @@ def main() -> int:
              rtol=1e-4, cpu_seconds=cpu_s, card_seconds_first_step=gpu_s)
         del pair, cpu_st, gpu_st
 
+    # -- 8b-8d. the data-preparation path, before any profiler trace slows the host
+    prep_paths = data_prep_phases(args.seed, decoder, T, reset_counts, read_counts, expect)
+
     # -- 9. the train paths: the flagship step --------------------------------
     Xt = torch.randn(B, T, C, generator=gdev, device=dev) * 10
     batch = {"X": Xt, "Y": torch.randn(B, T, F, generator=gdev, device=dev),
@@ -1626,11 +1844,14 @@ def main() -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
+    # -- 13e. xlsr-53's call on the device alone ------------------------------
+    wav2vec2_device_timing(args.seed)
+
     # -- 14. summary ---------------------------------------------------------
     paths = {"serve": launches, "train": train_launches, "eval": eval_launches, "fused_train": fused_launches,
              "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"], "tool": tool_launches,
              "trainer": trainer_launches, "trainer_fused": fused_trainer_launches, "preemption": preempt_launches,
-             "checkpoint_serve": serve_ck_launches}
+             "checkpoint_serve": serve_ck_launches, **prep_paths}
 
     def launches_of(kernel):
         return sum(p[kernel] for p in paths.values())

@@ -7,6 +7,9 @@ Port of ``speech_decoding_tpu/inference.py``:
     against the bank (cosine similarity, reference orientation
     [ref: models.py:226-243]);
   * ``decode`` — encode + retrieve in one call;
+  * ``bank_from_audio`` — build the candidate bank directly from raw audio
+    clips with the port's wav2vec2 (the training audio pipeline's embed chain
+    [ref: dataclass/gwilliams2022.py:327-387] as a serving op);
   * ``SpeechDecoder.decode_stream`` — sliding-window decoding of a
     continuous recording.
 
@@ -17,8 +20,8 @@ two 1x1 GELU heads. ``use_fused_blocks=False`` runs the module forward
 instead (which takes the same per-subject kernel).
 The bank lives on the device. ``SpeechDecoder.from_checkpoint`` serves a
 checkpoint of the port's ``training.CheckpointManager`` (the latest, the
-best-model one or a given epoch). ``bank_from_audio`` and a sharded bank wait
-for the wav2vec2 and parallel parts of the port.
+best-model one or a given epoch). A sharded bank waits for the parallel
+part of the port.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder
 from speech_decoding_tpu_torch.ops.conv_block import apply_fused_stack, prepare_fused_stack
+from speech_decoding_tpu_torch.ops.resample import fft_resample, sinc_resample
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
 from speech_decoding_tpu_torch.utils.device import resolve_device
 
@@ -79,6 +83,65 @@ def retrieve_topk_int8(Z: torch.Tensor, bank_q: torch.Tensor, bank_scale: torch.
     zq = torch.round(z / zscale).to(torch.int8)
     sim = _int8_sim(zq, bank_q) * zscale * bank_scale[None, :]
     return torch.topk(sim, min(int(k), bank_q.shape[0]), dim=-1)
+
+
+@torch.inference_mode()
+def bank_from_audio(
+    wav2vec,
+    waveforms: np.ndarray,
+    sample_rate: int,
+    segment_len: int,
+    brain_rate: float = 120.0,
+    audio_rate: int = 16000,
+    lowpass_filter_width: int = 6,
+    batch_size: int = 16,
+    last4layers: bool = True,
+) -> torch.Tensor:
+    """Raw candidate audio clips -> a (N, F, segment_len) f32 retrieval bank
+    on the embedder's device.
+
+    Runs the training audio pipeline's embed chain per clip
+    [ref: dataclass/gwilliams2022.py:327-387]: windowed-sinc resample to
+    ``audio_rate`` -> wav2vec2 last-4-layer mean (or the conv
+    feature-extractor path when ``last4layers=False``, mirroring the
+    ``preprocs.last4layers`` training flag [ref: brennan2018.py:187-189]) ->
+    FFT resample from the model's realized frame rate to ``brain_rate`` ->
+    crop/zero-pad to ``segment_len``. The result goes straight into
+    ``SpeechDecoder.set_bank`` (reference (N, F, T) layout
+    [ref: models.py:226]); its feature dim must match the encoder's F.
+
+    ``waveforms`` is (N, L) mono f32, all clips the same length; the clip
+    count is zero-padded to a ``batch_size`` multiple so every forward has
+    one shape (embedding is per-sample independent; padded rows are
+    dropped). ``wav2vec`` is a ``models.wav2vec_util.FrozenWav2Vec2``.
+
+    The training pipeline embeds the CONTINUOUS stimulus and slices segments
+    out of the embedding; per-clip embedding differs slightly near clip
+    edges (the conv extractor's receptive field)."""
+    waveforms = np.asarray(waveforms, np.float32)
+    if waveforms.ndim != 2:
+        raise ValueError(f"(N, L) mono clips expected, got {waveforms.shape}")
+    n = waveforms.shape[0]
+    if n % batch_size:
+        pad_rows = batch_size - n % batch_size
+        waveforms = np.concatenate(
+            [waveforms, np.zeros((pad_rows, waveforms.shape[1]), np.float32)]
+        )
+    outs = []
+    for i in range(0, waveforms.shape[0], batch_size):
+        wav = torch.from_numpy(waveforms[i : i + batch_size]).to(wav2vec.device)
+        if sample_rate != audio_rate:
+            wav = sinc_resample(wav, sample_rate, audio_rate, lowpass_filter_width=lowpass_filter_width)
+        emb = wav2vec.last4_mean(wav) if last4layers else wav2vec.features(wav)
+        emb = emb.transpose(-1, -2)  # (b, F, T_emb)
+        # frame rate of the embedding, from realized lengths (the conv
+        # extractor's stride product is not exactly 320 at every length)
+        rate_after = audio_rate * emb.shape[-1] / wav.shape[-1]
+        emb = fft_resample(emb, up=float(brain_rate) / rate_after)
+        t = emb.shape[-1]
+        emb = emb[..., :segment_len] if t >= segment_len else Fn.pad(emb, (0, segment_len - t))
+        outs.append(emb)
+    return torch.cat(outs)[:n]
 
 
 class SpeechDecoder:

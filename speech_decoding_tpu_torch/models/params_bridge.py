@@ -10,6 +10,9 @@ transposed: ``params["conv0"]["conv1"]["kernel"]`` is the port's
 arrays (``jax.tree.map(np.asarray, ...)`` of the flax variables, or
 ``models.torch_port.brain_encoder_from_torch`` output).
 
+The wav2vec2 embedder's modules keep the flax names and layouts too:
+``load_flax_wav2vec2`` loads a JAX ``Wav2Vec2Model`` params tree.
+
 A whole JAX ``TrainState.params`` is ``{"encoder": ..., "clip": {"temp":
 (1,)}}``: ``load_flax_train`` / ``flax_train_from_state`` carry the CLIP
 temperature beside the encoder.
@@ -79,3 +82,16 @@ def flax_train_from_state(encoder: torch.nn.Module, clip: torch.nn.Module) -> Tu
     """(params, batch_stats) in the layout of a JAX ``TrainState``."""
     params, stats = flax_from_state(encoder)
     return {"encoder": params, "clip": {"temp": clip.temp.detach().cpu().float().numpy()}}, stats
+
+
+def load_flax_wav2vec2(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
+    """Load a JAX ``Wav2Vec2Model`` params tree (``{"params": tree}`` or the
+    tree itself, numpy leaves; also ``models.wav2vec2.params_from_torch``
+    output) into the port's ``Wav2Vec2Model`` in place, strict, in the
+    module's dtype and device. A module made on the ``meta`` device takes
+    the loaded f32 CPU tensors as they are. Returns ``model``."""
+    params = variables.get("params", variables)
+    flat = {k: torch.tensor(v) for k, v in _flatten(params).items()}
+    meta = any(p.is_meta for p in model.parameters())
+    model.load_state_dict(flat, strict=True, assign=meta)
+    return model

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -17,3 +18,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """f32 convolutions and matmuls inside the block whatever the global
+    flags say: cuDNN's ``allow_tf32`` defaults to True, which would run an
+    f32 ``F.conv1d`` on the card in TF32 (10-bit mantissa). Both flags are
+    restored on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -30,9 +30,12 @@ def test_port_imports_no_jax():
     for m in ("ops.conv_block", "ops.scaling", "ops.tap_conv", "ops.retrieval", "models.loss",
               "models.classifier", "training", "training.state", "training.steps", "training.trainer",
               "training.checkpoint", "training.preemption", "data.sampling", "data.native_loader",
-              "utils.reproducibility", "tools", "tools.bench_cross_block_merge", "tools.scale_run"):
+              "utils.reproducibility", "tools", "tools.bench_cross_block_merge", "tools.scale_run",
+              "ops.fir", "ops.resample", "ops.brain_preproc_host", "ops.brain_preproc", "ops.preproc_dispatch",
+              "models.wav2vec2", "models.wav2vec2_safetensors", "models.wav2vec_util", "tools.bench_preproc",
+              "tools.bench_wav2vec"):
         assert f"speech_decoding_tpu_torch.{m}" in mods, m
-    assert len(mods) >= 33
+    assert len(mods) >= 43
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
