@@ -108,6 +108,17 @@ What it does, in order (one JSON object per line on stdout):
      (64, 1024, 360) bank on the card (timed twice), 2 clips against the
      CPU run in f32, ``set_bank`` on the serving decoder and one decode of
      16 segments against it (K1 1, K4 5);
+  8e. the CLI at the flagship widths (``cli``): a synthetic MEG-MASC-shape
+     tree (27 subjects, 1 session, 1 task, 40 s, 320 words, 224 raw
+     channels) built on the card (brain DSP, a random-weight xlsr-53 f32,
+     the scale stats; no kernel launched), the device-resident gather bit
+     for bit against ``sample_batch``, ``train.run`` at the config defaults
+     with device-resident data (2 epochs of 24 updates, ``scan_steps`` 8,
+     channels-last) and again on host batches, launches K1 2 a step + 1 an
+     eval, K2 15 a step, K3 1 an eval; the run dir's ``config.yaml`` with
+     ``resolved_seed``; ``tools.evaluate`` on the checkpoint reproducing the
+     last epoch's eval (loss rel 2e-4, top-k abs 1e-6); the eval step timed;
+     seconds, MEG-s/s, segments/s and peak memory printed;
   9. the second main path, training: the flagship train step as
      ``bench.py``'s ``build_flagship_step`` sets it up (B=64, bf16,
      channels-last, precomputed collate stats, ``conv_impl=gemm_pdw``)
@@ -490,6 +501,224 @@ def data_prep_phases(seed: int, decoder, seg: int, reset_counts, read_counts, ex
         del model, model_cpu, w_card, w_cpu, bank
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def cli_phase(seed: int, reset_counts, read_counts, expect) -> dict:
+    """Phase 8e: the CLI at the flagship widths on a synthetic MEG-MASC-shape
+    tree (27 subjects, 1 session, 1 task, 40 s, 320 words, 224 raw
+    channels of which 208 are MEG; ``data/synthetic.make_gwilliams_tree``)
+    in a temporary directory: the dataset built on the card (the brain DSP
+    through ``preprocess_batch``, the stimulus through a random-weight
+    xlsr-53 f32), the device-resident gather against ``sample_batch``, then
+    ``train.run`` with the defaults of ``configs/config.yaml`` and
+    device-resident data (2 epochs of 24 updates, ``scan_steps`` 8,
+    channels-last by the CLI's rule), the same on host batches (native
+    gather, pinned copies), ``tools.evaluate`` on the first run's
+    checkpoint, and the eval step timed by CUDA events. Each path sets every
+    launch counter to 0 just before and reads them just after. Run at
+    PyTorch's TF32 defaults (cuDNN on, matmuls off), as the CLI runs. Returns
+    the launches by path."""
+    import torch
+    import yaml
+
+    from speech_decoding_tpu_torch import train
+    from speech_decoding_tpu_torch.data.device_resident import DeviceResidentGwilliams
+    from speech_decoding_tpu_torch.data.gwilliams2022 import Gwilliams2022ShallowSplit
+    from speech_decoding_tpu_torch.data.layout import ch_locations_2d
+    from speech_decoding_tpu_torch.data.sampling import random_split
+    from speech_decoding_tpu_torch.data.synthetic import make_config, make_gwilliams_tree
+    from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder
+    from speech_decoding_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+    from speech_decoding_tpu_torch.models.wav2vec_util import FrozenWav2Vec2
+    from speech_decoding_tpu_torch.ops.retrieval import retrieval_ranks
+    from speech_decoding_tpu_torch.tools.evaluate import evaluate
+    from speech_decoding_tpu_torch.training import CheckpointManager, create_train_state, make_eval_step
+
+    S, SECS, WORDS, EPOCHS, UPDATES = 27, 40.0, 320, 2, 24
+    dims = {"gwilliams.num_subjects": S, "gwilliams.num_sessions": 1, "gwilliams.num_tasks": 1}
+    secs = {}
+
+    class TimedBuild(Gwilliams2022ShallowSplit):
+        """The shallow split with its two build stages timed (host clock,
+        ending in a synchronize)."""
+
+        def brain_preproc_all(self):
+            t = time.perf_counter()
+            out = super().brain_preproc_all()
+            torch.cuda.synchronize()
+            secs["brain_preproc"] = time.perf_counter() - t
+            return out
+
+        def audio_preproc(self):
+            t = time.perf_counter()
+            out = super().audio_preproc()
+            torch.cuda.synchronize()
+            secs["audio_embedding"] = time.perf_counter() - t
+            return out
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    paths = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        make_gwilliams_tree(tmp, n_subjects=S, n_sessions=1, n_tasks=1, rec_secs=SECS, n_words_per_task=WORDS)
+        secs["tree"] = time.perf_counter() - t
+        raw_gb = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(tmp) for f in fs) / 1e9
+
+        # -- the build on the card: brain DSP, xlsr-53 (random weights), stats
+        reset_counts()
+        w2v = FrozenWav2Vec2(Wav2Vec2Model(Wav2Vec2Config(), device="cuda",
+                                           generator=torch.Generator(device="cuda").manual_seed(seed + 12)),
+                             device="cuda")
+        t = time.perf_counter()
+        ds = TimedBuild(make_config(tmp, "Gwilliams2022", rebuild_dataset=True), wav2vec=w2v, device="cuda",
+                        num_subjects=S, num_sessions=1, num_tasks=1)
+        torch.cuda.synchronize()
+        secs["build"] = time.perf_counter() - t
+        paths["cli_build"] = read_counts()
+        del w2v
+        if paths["cli_build"] != expect():
+            raise AssertionError(f"the dataset build launched a kernel: {paths['cli_build']}")
+        # every word window inside its recording (X, the shift folded into
+        # the onsets) and its stimulus embedding (Y)
+        L = ds.seq_len_samp
+        x_in = all(int(ds.meg_onsets[k][tk].max()) + L <= ds.X[k][tk].shape[-1] and ds.meg_onsets[k][tk].min() >= 0
+                   for k in ds.X for tk in ds.X[k])
+        if not (x_in and len(ds) == WORDS and ds.Y.shape[1:] == (1024, L) and np.isfinite(ds.Y).all()):
+            raise AssertionError(f"the build: windows inside {x_in}, {len(ds)} segments, Y {ds.Y.shape}")
+        meg_secs = sum(x.shape[-1] for tasks in ds.X.values() for x in tasks.values()) / 120.0
+
+        # -- the device-resident gather against sample_batch, bit for bit in f32
+        batcher = DeviceResidentGwilliams(ds, store_dtype="float32", channels_last=True, device="cuda")
+        ids = np.random.default_rng(seed).choice(len(ds), 64, replace=False)
+        got = batcher.gather(batcher.make_index_batch(np.random.default_rng(seed + 1), ids))
+        want = ds.sample_batch(np.random.default_rng(seed + 1), ids)
+        same = {k: bool(np.array_equal(got[k].cpu().numpy().transpose(0, 2, 1) if k in ("X", "Y")
+                                       else got[k].cpu().numpy(), want[k])) for k in want}
+        stacks_gb = batcher.nbytes / 1e9
+        emit(check="cli device-resident gather (channels-last, f32) vs sample_batch, 64 segments",
+             bitwise_equal=same, stacks_gb=stacks_gb)
+        if not all(same.values()):
+            raise AssertionError(f"device-resident gather differs from sample_batch: {same}")
+        del batcher, got, want
+
+        def cfg_for(**over):
+            return make_config(tmp, "Gwilliams2022", epochs=EPOCHS, updates=UPDATES, **dims, **over)
+
+        def one_run(name, cfg):
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            hist = train.run(cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            paths[name] = read_counts()
+            steps, evals = EPOCHS * UPDATES, EPOCHS
+            want = expect(subject_matmul=2 * steps + evals, tap_conv_dw=15 * steps, retrieval_ranks=evals)
+            if paths[name] != want or not all(np.isfinite([h[k] for h in hist for k in ("train_loss", "test_loss")])):
+                raise AssertionError(f"{name}: launches {paths[name]}, expected {want}; {hist}")
+            return hist, wall
+
+        # -- the device-resident run (config.yaml defaults, channels-last by the CLI's rule)
+        cfg = cfg_for(run_name="device_resident", **{"tpu.device_resident_data": True})
+        hist, wall = one_run("cli_device_resident", cfg)
+        run_dir = [dp for dp, _, fs in os.walk(os.path.join(tmp, "outputs")) if "config.yaml" in fs][0]
+        with open(os.path.join(run_dir, "config.yaml")) as f:
+            snap = yaml.safe_load(f)
+        if snap.get("resolved_seed") != cfg.resolved_seed or snap["tpu"]["channels_last_io"] is not True:
+            raise AssertionError(f"the run dir's config.yaml: resolved_seed {snap.get('resolved_seed')}")
+        emit(phase="cli_device_resident", steps=EPOCHS * UPDATES, wall_s=wall, config=(
+             "configs/config.yaml defaults: B=64 D1=270 D2=320 K=32 F=1024 S=27 T=360 bf16, conv_impl gemm, "
+             "scan_steps 8, shallow split, device_resident_data, channels-last"),
+             train_loss=[h["train_loss"] for h in hist], test_loss=[h["test_loss"] for h in hist],
+             testTop10acc=[h["testTop10acc"] for h in hist],
+             segments_per_s_by_epoch=[h["train_segments_per_sec"] for h in hist],
+             segments_per_s_after_first_epoch=hist[-1]["train_segments_per_sec"], run_dir_config_yaml=True,
+             resolved_seed=snap["resolved_seed"], launches=paths["cli_device_resident"])
+
+        # -- the host-batch run: native gather, pinned copies of X, Y, stats
+        hist_h, wall_h = one_run("cli_host_batches", cfg_for(run_name="host_batches",
+                                                              **{"tpu.device_resident_data": False}))
+        # the host path's parts, one batch of 64 at a time (host clock, median
+        # of 10 after one warm-up; not a path: no kernel runs)
+        def host_ms(fn, reps=10):
+            fn()
+            ts = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t)
+            return float(np.median(ts)) * 1e3
+
+        hb = ds.sample_batch(np.random.default_rng(seed + 2), ids)
+        parts = {
+            "sample_batch_ms": host_ms(lambda: ds.sample_batch(np.random.default_rng(seed + 2), ids)),
+            "Y_index_ms": host_ms(lambda: ds.Y[ids]),
+            "pinned_copy_to_card_ms": host_ms(lambda: [torch.from_numpy(np.asarray(v)).pin_memory().to(
+                "cuda", non_blocking=True) for k, v in hb.items() if k != "subject_idxs"]),
+        }
+        emit(phase="cli_host_batches", steps=EPOCHS * UPDATES, wall_s=wall_h,
+             train_loss=[h["train_loss"] for h in hist_h],
+             segments_per_s_by_epoch=[h["train_segments_per_sec"] for h in hist_h],
+             segments_per_s_after_first_epoch=hist_h[-1]["train_segments_per_sec"],
+             host_bytes_per_step={"X": 64 * 208 * L * 4, "Y": 64 * 1024 * L * 4, "scale_stats": 64 * 208 * 2 * 4},
+             host_batch_parts=parts, launches=paths["cli_host_batches"])
+        del hb
+
+        # -- evaluate on the first run's checkpoint, from its config.yaml
+        args_e = train.parse_argv([os.path.join(run_dir, "config.yaml"),
+                                   f"checkpoint.dir={os.path.join(run_dir, 'checkpoints')}"])
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        out = evaluate(args_e, device="cuda")
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        paths["cli_evaluate"] = read_counts()
+        last = hist[-1]
+        agree = {"epoch": out["epoch"] == last["epoch"],
+                 "test_loss": abs(out["test_loss"] - last["test_loss"]) <= 2e-4 * abs(last["test_loss"]),
+                 "testTop1acc": abs(out["testTop1acc"] - last["testTop1acc"]) <= 1e-6,
+                 "testTop10acc": abs(out["testTop10acc"] - last["testTop10acc"]) <= 1e-6}
+        emit(check="cli evaluate vs the last epoch's eval", evaluate=out, trained={k: last[k] for k in (
+             "epoch", "test_loss", "testTop1acc", "testTop10acc")}, agree=agree, rel_bound=2e-4, abs_bound=1e-6,
+             seconds=eval_s, launches=paths["cli_evaluate"])
+        if not all(agree.values()) or paths["cli_evaluate"] != expect(subject_matmul=1, retrieval_ranks=1):
+            raise AssertionError(f"evaluate: {agree}, launches {paths['cli_evaluate']}")
+
+        # -- the eval step alone on the device-resident test batch (timed; not a path)
+        ds_e = Gwilliams2022ShallowSplit(args_e, device="cuda", num_subjects=S, num_sessions=1, num_tasks=1)
+        b = DeviceResidentGwilliams(ds_e, channels_last=True, device="cuda")
+        test_pool = random_split(len(ds_e), args_e.split_ratio, np.random.default_rng(args_e.resolved_seed))[1]
+        tb = b.gather(b.make_index_batch(np.random.default_rng(args_e.resolved_seed + 1), test_pool))
+        st = create_train_state(BrainEncoder.from_config(args_e, ch_locations_2d("Gwilliams2022", tmp), S),
+                                device="cuda")
+        st, _ = CheckpointManager(args_e.checkpoint.dir).restore_for_eval(st)
+        step = make_eval_step(args_e.reduction, train.build_collate(args_e))
+        eval_ms = time_ms(lambda: step(st, tb), reps=20)
+        emit(phase="cli", tree_s=secs["tree"], raw_gb=raw_gb, build_s=secs["build"],
+             brain_preproc_s=secs["brain_preproc"], meg_seconds=meg_secs,
+             brain_meg_s_per_s=meg_secs / secs["brain_preproc"], audio_embedding_s=secs["audio_embedding"],
+             stimulus_s=SECS * 0.9, device_resident_stacks_gb=stacks_gb,
+             segments={"train": len(ds) - len(test_pool), "test": len(test_pool)},
+             segments_per_s={"device_resident": hist[-1]["train_segments_per_sec"],
+                             "host_batches": hist_h[-1]["train_segments_per_sec"]},
+             eval_ms=eval_ms, eval_k3_route=retrieval_ranks.route, evaluate_s=eval_s,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             brain_preproc_note=f"brain_preproc_all: reading the {S} raw .npy files, preprocess_batch on the card")
+        del ds, ds_e, b, tb, st
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return paths
@@ -1203,6 +1432,9 @@ def main() -> int:
     # -- 8b-8d. the data-preparation path, before any profiler trace slows the host
     prep_paths = data_prep_phases(args.seed, decoder, T, reset_counts, read_counts, expect)
 
+    # -- 8e. the CLI at the flagship: build, device-resident and host-batch runs, evaluate
+    cli_paths = cli_phase(args.seed, reset_counts, read_counts, expect)
+
     # -- 9. the train paths: the flagship step --------------------------------
     Xt = torch.randn(B, T, C, generator=gdev, device=dev) * 10
     batch = {"X": Xt, "Y": torch.randn(B, T, F, generator=gdev, device=dev),
@@ -1851,7 +2083,7 @@ def main() -> int:
     paths = {"serve": launches, "train": train_launches, "eval": eval_launches, "fused_train": fused_launches,
              "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"], "tool": tool_launches,
              "trainer": trainer_launches, "trainer_fused": fused_trainer_launches, "preemption": preempt_launches,
-             "checkpoint_serve": serve_ck_launches, **prep_paths}
+             "checkpoint_serve": serve_ck_launches, **prep_paths, **cli_paths}
 
     def launches_of(kernel):
         return sum(p[kernel] for p in paths.values())

@@ -79,6 +79,10 @@ def make_wandb_logger(args):
     return wandb
 
 
+MULTI_PROCESS_NOT_PORTED = ("multi-process training is not ported yet: the port has no mesh, "
+                            "no synchronized BatchNorm and no multi-host batch placement")
+
+
 def _world_size() -> int:
     dist = torch.distributed
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
@@ -98,8 +102,7 @@ class Trainer:
                  collate: Optional[Dict] = None, logger=None, checkpoints: Optional[CheckpointManager] = None,
                  device=None):
         if _world_size() > 1:
-            raise NotImplementedError("multi-process training is not ported yet: the port has no mesh, "
-                                      "no synchronized BatchNorm and no multi-host batch placement")
+            raise NotImplementedError(MULTI_PROCESS_NOT_PORTED)
         self.args = args
         self.encoder = encoder
         self.logger = logger or NoopLogger()

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of
 ``speech_decoding_tpu_torch`` (and ``chip_smoke.py``) pulls in no JAX, no
-flax and nothing of ``speech_decoding_tpu``; the package ships its kernel
-sources and config."""
+flax and nothing of ``speech_decoding_tpu``, and its CLI runs as a module
+where importing JAX fails; the package ships its kernel sources and
+config."""
 
 import pytest
 
@@ -33,9 +34,11 @@ def test_port_imports_no_jax():
               "utils.reproducibility", "tools", "tools.bench_cross_block_merge", "tools.scale_run",
               "ops.fir", "ops.resample", "ops.brain_preproc_host", "ops.brain_preproc", "ops.preproc_dispatch",
               "models.wav2vec2", "models.wav2vec2_safetensors", "models.wav2vec_util", "tools.bench_preproc",
-              "tools.bench_wav2vec"):
+              "tools.bench_wav2vec", "utils.natsort", "utils.wavio", "data.preproc_cache", "data.synthetic",
+              "data.gwilliams2022", "data.device_resident", "data.brennan2018", "train", "tools.evaluate",
+              "tools.import_torch_checkpoint", "examples", "examples.synthetic_demo"):
         assert f"speech_decoding_tpu_torch.{m}" in mods, m
-    assert len(mods) >= 43
+    assert len(mods) >= 55
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
@@ -85,3 +88,21 @@ def test_chip_smoke_refuses_without_a_gpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_module_entry_point_without_jax(tmp_path):
+    """``python -m speech_decoding_tpu_torch.train`` with ``import jax``
+    failing: the CLI parses its arguments and reaches run, which raises
+    for want of a GPU (or would train on one)."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the CLI would train for real")
+    code = ("import sys, runpy; sys.modules['jax'] = None; sys.argv = ['train', 'dataset=Gwilliams2022', "
+            f"'root_dir={tmp_path}']; runpy.run_module('speech_decoding_tpu_torch.train', run_name='__main__')")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr, out.stderr[-2000:]
+    assert "jax" not in out.stderr.replace("no CUDA", ""), out.stderr[-2000:]

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (K1 forward and backward, K2, K3, K4, K5,
-the six stages of K6 and K7) against their plain PyTorch versions, on the card. Marked ``cuda``; each test skips when no CUDA device is present (the
+the six stages of K6 and K7) against their plain PyTorch versions, on the card;
+then the device-resident gather against the host batches and a tiny CLI run. Marked ``cuda``; each test skips when no CUDA device is present (the
 CPU tier holds the plain versions against JAX instead). Run on a GPU with
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
@@ -873,3 +874,79 @@ def test_f31_is_deterministic_and_rejects(dev):
         cbt.f31(*args[:-1], 0)
     with pytest.raises(ValueError, match="argument 6"):
         cbt.f31(*args[:5], args[5][:, :8].contiguous(), args[6], 2)
+
+
+# -- the data layer and the CLI on the card ------------------------------------------------
+
+
+def _tiny_gwilliams(dev, root, **over):
+    """A tiny Gwilliams tree, its caches built on the card (the port's tiny
+    wav2vec2 there), and the CLI's config for it (tests/test_cli.py's
+    widths, f32)."""
+    from speech_decoding_tpu_torch.data.gwilliams2022 import Gwilliams2022ShallowSplit
+    from speech_decoding_tpu_torch.data.synthetic import make_config, make_gwilliams_tree, tiny_wav2vec
+
+    make_gwilliams_tree(root)
+    dims = dict(num_subjects=2, num_sessions=2, num_tasks=2)
+    cfg = make_config(root, "Gwilliams2022", epochs=2, batch_size=4, updates=3, D1=16, D2=16, K=4, F=16, **{
+        "preprocs.last4layers": False, "tpu.compute_dtype": "float32", "checkpoint.dir": "checkpoints",
+        **{f"gwilliams.{k}": v for k, v in dims.items()}, **over})
+    build = cfg.copy()
+    build.rebuild_dataset = True
+    ds = Gwilliams2022ShallowSplit(build, wav2vec=tiny_wav2vec(device=dev), device=dev, **dims)
+    return cfg, ds
+
+
+@pytest.mark.parametrize("store", ["float32", "int16"])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_device_resident_gather_on_the_card(dev, tmp_path, store, channels_last):
+    """The gather on the card against the host sample_batch (native gather)
+    under the same rng: f32 stacks bit for bit (transposed for
+    channels-last), int16 within half a quantization step of each
+    (recording, channel) (f32 rounding aside)."""
+    import numpy as np
+
+    from speech_decoding_tpu_torch.data.device_resident import DeviceResidentGwilliams
+
+    _, ds = _tiny_gwilliams(dev, str(tmp_path))
+    b = DeviceResidentGwilliams(ds, store_dtype=store, channels_last=channels_last, device=dev)
+    assert b.X_stack.is_cuda and b.X_stack.dtype == getattr(torch, store)
+    ids = np.array([3, 40, 0, 17, 29, 8])
+    idx = b.make_index_batch(np.random.default_rng(5), ids)
+    got = b.gather(idx)
+    want = ds.sample_batch(np.random.default_rng(5), ids)
+    assert got["X"].is_cuda and not got["subject_idxs"].is_cuda
+    for k in ("X", "Y"):
+        g = got[k].cpu().numpy()
+        g = g.transpose(0, 2, 1) if channels_last else g
+        if store == "float32":
+            np.testing.assert_array_equal(g, want[k], err_msg=k)
+        else:  # round-half-up: half a step of the (recording or task, channel) scale
+            step = (b.x_scale[idx["rec_idx"]] if k == "X" else b.y_scale[idx["task_idx"]]).cpu().numpy()[..., None]
+            assert (np.abs(g - want[k]) <= 0.5 * step * (1 + 1e-3) + 1e-6 * np.abs(want[k])).all(), k
+    np.testing.assert_array_equal(got["scale_stats"].cpu().numpy(), want["scale_stats"])
+    np.testing.assert_array_equal(got["subject_idxs"].numpy(), want["subject_idxs"])
+
+
+def test_tiny_cli_run_on_the_card(dev, tmp_path):
+    """``train.run`` on the card with device-resident data (scan pairs):
+    finite losses, launches per step K1 2 and K2 15, K3 1 an eval; then
+    ``evaluate`` reproduces the last epoch's eval from host batches."""
+    import numpy as np
+
+    from speech_decoding_tpu_torch import train
+    from speech_decoding_tpu_torch.tools.evaluate import evaluate
+
+    cfg, _ = _tiny_gwilliams(dev, str(tmp_path), **{"tpu.device_resident_data": True, "tpu.scan_steps": 2})
+    counted = (subject_matmul, tap_conv_dw, retrieval_ranks, tcb.conv_block_fused, tap_conv)
+    before = [fn.launches for fn in counted]
+    hist = train.run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    launches = [fn.launches - b for fn, b in zip(counted, before)]
+    steps, evals = cfg.epochs * cfg.updates, cfg.epochs
+    assert launches == [2 * steps + evals, 15 * steps, evals, 0, 0]
+    assert all(np.isfinite(h["train_loss"]) and np.isfinite(h["test_loss"]) for h in hist)
+    out = evaluate(cfg.copy(), device="cuda")
+    assert out["epoch"] == hist[-1]["epoch"]
+    assert out["test_loss"] == pytest.approx(hist[-1]["test_loss"], rel=2e-4)
+    assert out["testTop10acc"] == pytest.approx(hist[-1]["testTop10acc"], abs=1e-6)
