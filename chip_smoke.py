@@ -744,6 +744,421 @@ def wav2vec2_device_timing(seed: int) -> None:
          device_share=dev_ms / ms if dev_ms else "not measured")
 
 
+# -- 15. data parallelism: what each rank runs (spawned processes) -------------------------------
+# NCCL refuses two ranks on one card, so on one card the data-parallel path
+# runs at world size 1 over NCCL (the real collectives, each a no-op sum),
+# and at world size 2 over gloo with both ranks on cuda:0 (gloo stages its
+# collectives through the host: a check of the arithmetic, not a rate)
+
+DP_SEED = 15  # the phase's weights, batches and masks, alike in every process
+DP_STEPS = (3, 5)  # bf16 warm-up and timed steps of (a)
+DP_TRAINER_STEPS = 12
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by name (K6 one per stage, K7
+    its own), of this process."""
+    from speech_decoding_tpu_torch.ops import conv_block_train as cbt
+    from speech_decoding_tpu_torch.ops.conv_block import conv_block_fused
+    from speech_decoding_tpu_torch.ops.retrieval import retrieval_ranks
+    from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
+    from speech_decoding_tpu_torch.ops.tap_conv import tap_conv, tap_conv_dw
+
+    return {"subject_matmul": subject_matmul, "conv_block_fused": conv_block_fused, "tap_conv_dw": tap_conv_dw,
+            "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv,
+            **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()},
+            **{f"conv_block_train.{name}_tile": fn for name, fn in cbt.TILE.items()},
+            "conv_block_train.F31": cbt.f31, "conv_block_train.F31_tile": cbt.f31_tile}
+
+
+def _reset_counts() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def dp_args(dtype: str, overrides=()):
+    from speech_decoding_tpu_torch.tools import scale_run
+
+    return scale_run.flagship_args(1, [f"tpu.compute_dtype={dtype}", "tpu.scan_steps=1", *overrides])
+
+
+def dp_state(dtype: str, device, group=None, lr: float = 3e-4):
+    """The flagship train state from DP_SEED's weights."""
+    from speech_decoding_tpu_torch.tools import scale_run
+    from speech_decoding_tpu_torch.training import create_train_state
+
+    enc = scale_run.make_encoder(dp_args(dtype), scale_run.FLAGSHIP, DP_SEED)
+    return create_train_state(enc, lr=lr, device=device, group=group)
+
+
+def dp_batch(n: int, salt: int) -> dict:
+    """A host batch of n flagship segments (numpy, channels-last), with its
+    precomputed collate statistics."""
+    import torch
+
+    from speech_decoding_tpu_torch.ops.scaling import window_scale_stats
+    from speech_decoding_tpu_torch.tools import scale_run
+
+    d = scale_run.FLAGSHIP
+    rng = np.random.default_rng([DP_SEED, salt])
+    X = (rng.standard_normal((n, d["T"], d["C"]), dtype=np.float32) * 10)
+    stats = window_scale_stats(torch.from_numpy(X).transpose(1, 2)).numpy()
+    return {"X": X, "Y": rng.standard_normal((n, d["T"], d["F"]), dtype=np.float32),
+            "subject_idxs": rng.integers(0, d["S"], n).astype(np.int32), "scale_stats": stats}
+
+
+def dp_mask(step: int):
+    import torch
+
+    from speech_decoding_tpu_torch.data.layout import ch_locations_2d
+    from speech_decoding_tpu_torch.models.brain_encoder import spatial_dropout_mask
+
+    loc = ch_locations_2d("Gwilliams2022", root_dir=ROOT, cache=False)
+    return spatial_dropout_mask(torch.Generator().manual_seed(DP_SEED * 1000 + step), loc, 0.1)
+
+
+def dp_f32_check(group, device, fused: bool, n: int) -> dict:
+    """One f32 step on a global batch of n: the data-parallel step on the
+    rank's block against the one-process step on the whole batch, on this
+    card from the same weights, batch and mask. Phase 8's bounds: loss at
+    rtol 1e-4, temperature 1e-6, each gradient (summed over the ranks) at
+    1e-3 of its largest entry + 1e-4 of the model's largest gradient, the BN
+    running statistics at atol 1e-5 + rtol 1e-4. Returns the errors over
+    their bounds (<= 1 passes)."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel import shard_batch
+    from speech_decoding_tpu_torch.parallel.mesh import put_batch
+    from speech_decoding_tpu_torch.training import make_train_step
+
+    host, mask = dp_batch(n, 1), dp_mask(0)
+    ref = dp_state("float32", device)
+    ref, m_ref = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused)(ref, put_batch(host, ref.device),
+                                                                              drop_mask=mask)
+    st = dp_state("float32", device, group)
+    st, m = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused, group=group)(
+        st, shard_batch(host, group), drop_mask=mask)
+    torch.cuda.synchronize()
+    grads = {name: (p.grad, q.grad) for (name, p), (_, q) in zip(st.encoder.named_parameters(),
+                                                                  ref.encoder.named_parameters())}
+    grads["clip.temp"] = (st.clip.temp.grad, ref.clip.temp.grad)
+    gmax = max(float(w.abs().max()) for _, w in grads.values())
+    worst = (0.0, "")
+    for name, (g, w) in grads.items():
+        worst = max(worst, (float((g - w).abs().max()) / (1e-3 * float(w.abs().max()) + 1e-4 * gmax), name))
+    stats = 0.0
+    ref_bufs = dict(ref.encoder.named_buffers())
+    for name, b in st.encoder.named_buffers():
+        if name.endswith(("mean", "var")):
+            w = ref_bufs[name]
+            stats = max(stats, float(((b - w).abs() / (1e-5 + 1e-4 * w.abs())).max()))
+    loss, loss_ref = float(m["loss"]), float(m_ref["loss"])
+    return {"loss": loss, "loss_one_process": loss_ref,
+            "loss_err_over_bound": abs(loss - loss_ref) / (1e-4 * abs(loss_ref)),
+            "temp_err_over_bound": abs(float(m["temp"]) - float(m_ref["temp"])) / (1e-6 * abs(float(m_ref["temp"]))),
+            "gradient_err_over_bound": worst[0], "worst_gradient": worst[1], "tensors": len(grads),
+            "bn_stats_err_over_bound": stats,
+            "topk_equal": [float(m["top1"]), float(m["top10"])] == [float(m_ref["top1"]), float(m_ref["top10"])]}
+
+
+def dp_timed_steps(state, step, batch, n: int, first_step: int) -> dict:
+    """n steps, every launch counter set to 0 just before and read just
+    after; ms per step by CUDA events and the host clock."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    losses = []
+    t = time.perf_counter()
+    start.record()
+    for i in range(n):
+        state, m = step(state, batch, drop_mask=dp_mask(first_step + i))
+        losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms_per_step_cuda_events": start.elapsed_time(end) / n,
+            "ms_per_step_host_clock": (time.perf_counter() - t) / n * 1e3,
+            "launches": _read_counts(), "losses": torch.stack(losses).float().tolist()}
+
+
+def dp_rank_nccl() -> dict:
+    """(a): one rank over NCCL (world size 1, cuda:LOCAL_RANK)."""
+    from speech_decoding_tpu_torch.parallel import data_group
+    from speech_decoding_tpu_torch.parallel.mesh import put_batch
+    from speech_decoding_tpu_torch.training import make_train_step
+
+    group = data_group()
+    out = {"backend": "nccl", "world": group.world, "device": str(group.device),
+           "f32_b8": {("fused" if f else "module"): dp_f32_check(group, group.device, f, 8) for f in (False, True)}}
+    batch = put_batch(dp_batch(64, 2), group.device)
+    warm, timed = DP_STEPS
+    steps = {}
+    for fused in (False, True):
+        runs = {}
+        for name, grp in (("one_process", None), ("group", group)):
+            st = dp_state("bfloat16", group.device, grp)
+            step = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused, group=grp)
+            for i in range(warm):
+                st, _ = step(st, batch, drop_mask=dp_mask(i))
+            runs[name] = dp_timed_steps(st, step, batch, timed, warm)
+            runs[name]["gradient_floats"] = sum(p.numel() for p in [*st.encoder.parameters(), st.clip.temp])
+            steps[fused, name] = step, st
+        out["fused" if fused else "module"] = runs
+    out["collectives"] = dp_collective_ms(group)
+    # device times last: a profiler trace slows every later launch on the host
+    for (fused, name), (step, st) in steps.items():
+        out["fused" if fused else "module"][name]["device_busy_ms_per_step"] = dp_device_busy_ms(step, st, batch)
+    return out
+
+
+def dp_device_busy_ms(step, state, batch, n: int = 3):
+    """Device time a step (kernels and copies, summed from torch.profiler
+    over n more steps), taken after the timed steps it would slow."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            state, _ = step(state, batch, drop_mask=dp_mask(100 + i))
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return us / n / 1e3 if us else "not measured"
+
+
+def dp_collective_ms(group, reps: int = 50) -> dict:
+    """What one collective of the step costs at this world size: an
+    all-reduce of a BN sum (2, 320) f32 on the host clock (each call
+    synchronised, and back to back) and by CUDA events, and the gradient
+    all-reduce (9.5 M f32 flattened, then copied back) by CUDA events."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel.collectives import all_reduce_, all_reduce_grads
+
+    small = torch.ones(2, 320, device=group.device)
+    for _ in range(5):
+        all_reduce_(small, group)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        all_reduce_(small, group)
+        torch.cuda.synchronize()
+    synced = (time.perf_counter() - t) / reps * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        all_reduce_(small, group)
+    end.record()
+    host = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    st = dp_state("bfloat16", group.device)
+    params = [*st.encoder.parameters(), st.clip.temp]
+    for p in params:
+        p.grad = torch.ones_like(p)
+    all_reduce_grads(params, group)
+    torch.cuda.synchronize()
+    g0, g1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    g0.record()
+    for _ in range(5):
+        all_reduce_grads(params, group)
+    g1.record()
+    torch.cuda.synchronize()
+    return {"bn_sum_all_reduce_ms_synced_host_clock": synced, "bn_sum_all_reduce_ms_back_to_back_host_clock": host,
+            "bn_sum_all_reduce_ms_cuda_events": start.elapsed_time(end) / reps,
+            "gradient_all_reduce_ms_cuda_events": g0.elapsed_time(g1) / 5,
+            "gradient_all_reduce_ms_host_clock": (time.perf_counter() - t) / 5 * 1e3,
+            "collectives_per_step": "28 on either path: 20 BN sums (10 forward, 10 backward), 7 in the CLIP loss "
+                                    "and its top-k (gather, column max, column sums, loss; the column sums' and the "
+                                    "gather's backward; hit counts), 1 gradient all-reduce"}
+
+
+def dp_rank_gloo(ckdir: str) -> dict:
+    """(b) and (c): one of two ranks over gloo, both on cuda:0."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel import data_group, shard_batch
+    from speech_decoding_tpu_torch.parallel.collectives import assert_same_on_ranks
+    from speech_decoding_tpu_torch.parallel.multihost import host_local_slice
+    from speech_decoding_tpu_torch.training import CheckpointManager, Trainer, make_train_step
+    from speech_decoding_tpu_torch.training.state import state_digest
+    from speech_decoding_tpu_torch.tools import scale_run
+
+    group = data_group("cuda:0")
+    out = {"backend": "gloo", "world": group.world, "rank": group.rank, "device": str(group.device),
+           "f32_b16": {("fused" if f else "module"): dp_f32_check(group, group.device, f, 16) for f in (False, True)}}
+    # three bf16 steps at global B=64, the state compared across the ranks after each
+    batch = shard_batch(dp_batch(64, 3), group)
+    for fused in (False, True):
+        st = dp_state("bfloat16", group.device, group)
+        step = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused, group=group)
+        torch.cuda.synchronize()
+        _reset_counts()
+        losses, ms = [], []
+        for i in range(3):
+            t = time.perf_counter()
+            st, m = step(st, batch, drop_mask=dp_mask(i))
+            losses.append(float(m["loss"]))  # waits for the step
+            ms.append((time.perf_counter() - t) * 1e3)
+            assert_same_on_ranks(state_digest(st), group, f"the state after bf16 step {i}")
+        out["fused" if fused else "module"] = {"losses": losses, "ms_per_step_host_clock": ms,
+                                               "launches": _read_counts(), "bit_identical_after_each_step": True}
+    # (c) a Trainer epoch on host batches: this rank's block of each global
+    # batch, the whole test batch, a checkpoint (the primary writes) and a resume
+    train = [dp_batch(16, 10 + i) for i in range(DP_TRAINER_STEPS)]
+    local = [{k: v[host_local_slice(16)] for k, v in b.items()} for b in train]
+    args = dp_args("float32", ["lr=5e-7"])
+    tr = Trainer(scale_run.make_encoder(args, scale_run.FLAGSHIP, DP_SEED), args, device=group.device,
+                 checkpoints=CheckpointManager(os.path.join(ckdir, "shared"), track_metric="testTop10acc"))
+    torch.cuda.synchronize()
+    _reset_counts()
+    hist = tr.run_epoch(0, local, dp_batch(64, 99))
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    resumed = Trainer(scale_run.make_encoder(args, scale_run.FLAGSHIP, DP_SEED + 1), args, device=group.device,
+                      checkpoints=CheckpointManager(os.path.join(ckdir, "shared")))
+    digest = state_digest(tr.state)
+    out["trainer"] = {"history": hist, "launches": launches, "steps": tr.state.step, "multihost": tr.multihost,
+                      "resumed_start_epoch": resumed.start_epoch,
+                      "resumed_bitwise": state_digest(resumed.state) == digest, "digest": digest.hex(),
+                      "epoch_seconds": tr.last_epoch_seconds}
+    assert_same_on_ranks(digest, group, "the Trainer's state")
+    if group.is_primary:  # numpy: a tensor would cross the queue as a shared-memory handle
+        out["trainer"]["state"] = {k: v.detach().cpu().numpy() for k, v in tr.state.encoder.state_dict().items()}
+        out["trainer"]["state"]["clip.temp"] = tr.state.clip.temp.detach().cpu().numpy()
+    return out
+
+
+def data_parallel_phase(step_ms: dict, expect) -> dict:
+    """Phase 15 in the parent: spawn the ranks (the kernels are built
+    already), check what they return, run the one-process Trainer epoch
+    that (c) is held against, print the lines; returns the launch counts of
+    each data-parallel path (the gloo paths summed over the two ranks)."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel.multihost import spawn_ranks
+    from speech_decoding_tpu_torch.training import Trainer
+    from speech_decoding_tpu_torch.tools import scale_run
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    k6 = {f"conv_block_train.{st}": 5 for st in ("F1", "F2", "F3", "B1", "B2", "B3")}
+    per_step = {"module": expect(subject_matmul=2, tap_conv_dw=15),
+                "fused": expect(subject_matmul=2, tap_conv_dw=15, **k6)}
+
+    def times(counts, n):
+        return {k: v * n for k, v in counts.items()}
+
+    def f32_ok(label, checks):
+        for path, c in checks.items():
+            bad = {k: v for k, v in c.items() if k.endswith("over_bound") and not v <= 1.0}
+            if bad or not c["topk_equal"]:
+                raise AssertionError(f"{label} {path}: the data-parallel step differs from one process: {c}")
+
+    # (a) one rank over NCCL
+    t = time.perf_counter()
+    a = spawn_ranks(dp_rank_nccl, 1, backend="nccl", timeout=600)[0]
+    f32_ok("data_parallel_nccl f32 B=8", a["f32_b8"])
+    paths = {}
+    for path in ("module", "fused"):
+        runs = a[path]
+        for name, r in runs.items():
+            if r["launches"] != times(per_step[path], DP_STEPS[1]) or not np.all(np.isfinite(r["losses"])):
+                raise AssertionError(f"data_parallel_nccl {path} {name}: launches {r['launches']}, "
+                                     f"losses {r['losses']}")
+        paths[f"dp_nccl_{path}"] = runs["group"]["launches"]
+        floats = runs["group"]["gradient_floats"]
+        phase9 = step_ms["train" if path == "module" else "fused_train"]
+        emit(phase="data_parallel_nccl", path=path, backend="nccl", world=a["world"], device=a["device"],
+             config="flagship: B=64 C=208 T=360 D1=270 D2=320 F=1024 K=32 S=27, bf16, channels-last, "
+                    "precomputed collate stats, conv_impl=gemm_pdw" + (", fused_blocks" if path == "fused" else ""),
+             warmup_steps=DP_STEPS[0], steps=DP_STEPS[1], gradient_floats=floats, gradient_mbytes=floats * 4 / 1e6,
+             group_ms_per_step_cuda_events=runs["group"]["ms_per_step_cuda_events"],
+             group_ms_per_step_host_clock=runs["group"]["ms_per_step_host_clock"],
+             one_process_ms_per_step_cuda_events=runs["one_process"]["ms_per_step_cuda_events"],
+             one_process_ms_per_step_host_clock=runs["one_process"]["ms_per_step_host_clock"],
+             group_device_busy_ms_per_step=runs["group"]["device_busy_ms_per_step"],
+             one_process_device_busy_ms_per_step=runs["one_process"]["device_busy_ms_per_step"],
+             phase9_ms_per_step=phase9, launches=runs["group"]["launches"], losses=runs["group"]["losses"],
+             f32_b8_vs_one_process=a["f32_b8"][path], collectives=a["collectives"],
+             seconds_with_spawn=time.perf_counter() - t)
+
+    # (b) and (c): two ranks over gloo on this card
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        t = time.perf_counter()
+        b = spawn_ranks(dp_rank_gloo, 2, args=(ckdir,), backend="gloo", timeout=900)
+        gloo_s = time.perf_counter() - t
+        for r in b:
+            f32_ok(f"data_parallel_gloo rank {r['rank']} f32 B=16", r["f32_b16"])
+        for path in ("module", "fused"):
+            r0, r1 = b[0][path], b[1][path]
+            for r in (r0, r1):
+                if r["launches"] != times(per_step[path], 3):
+                    raise AssertionError(f"data_parallel_gloo {path}: launches {r['launches']}")
+            if r0["losses"] != r1["losses"] or not np.all(np.isfinite(r0["losses"])):
+                raise AssertionError(f"data_parallel_gloo {path}: the ranks' losses {r0['losses']} {r1['losses']}")
+            paths[f"dp_gloo_{path}"] = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+            emit(phase="data_parallel_gloo", path=path, backend="gloo", world=2, device=b[0]["device"],
+                 config="flagship, bf16, global B=64 (32 a rank), 3 steps; f32 global B=16 (8 a rank) against one "
+                        "process", losses=r0["losses"], bit_identical_after_each_step=True,
+                 launches_per_rank=[r0["launches"], r1["launches"]],
+                 ms_per_step_host_clock_check_only=[r0["ms_per_step_host_clock"], r1["ms_per_step_host_clock"]],
+                 f32_b16_vs_one_process=[r["f32_b16"][path] for r in b])
+
+        # (c) against one process on the same global batches, on this card
+        tr = [r["trainer"] for r in b]
+        want = expect(subject_matmul=2 * DP_TRAINER_STEPS + 1, tap_conv_dw=15 * DP_TRAINER_STEPS, retrieval_ranks=1)
+        for r in tr:
+            if r["launches"] != want or r["steps"] != DP_TRAINER_STEPS or not r["multihost"]:
+                raise AssertionError(f"data_parallel_trainer: launches {r['launches']}, steps {r['steps']}")
+            if r["resumed_start_epoch"] != 1 or not r["resumed_bitwise"] or r["digest"] != tr[0]["digest"]:
+                raise AssertionError(f"data_parallel_trainer: the resumed state differs: {r}")
+        paths["dp_gloo_trainer"] = {k: tr[0]["launches"][k] + tr[1]["launches"][k] for k in want}
+        args = dp_args("float32", ["lr=5e-7"])
+        one = Trainer(scale_run.make_encoder(args, scale_run.FLAGSHIP, DP_SEED), args, device="cuda")
+        want_hist = one.run_epoch(0, [dp_batch(16, 10 + i) for i in range(DP_TRAINER_STEPS)], dp_batch(64, 99))
+        got = tr[0]["history"]
+        keys = ("train_loss", "test_loss", "temp", "trainTop1acc", "trainTop10acc", "testTop1acc", "testTop10acc")
+        if any(tr[1]["history"][k] != got[k] for k in keys):
+            raise AssertionError(f"data_parallel_trainer: the ranks' histories differ: {tr[0]['history']} "
+                                 f"{tr[1]['history']}")
+        # f32 on the card, sums in another order: losses at rtol 1e-4, the
+        # temperature 1e-5; a near-tie may move one segment in a top-k
+        # (1/(16·12) of the train mean, 1/64 of the test's)
+        diffs = {k: abs(got[k] - want_hist[k]) for k in keys}
+        bounds = {"train_loss": 1e-4 * abs(want_hist["train_loss"]), "test_loss": 1e-4 * abs(want_hist["test_loss"]),
+                  "temp": 1e-5 * abs(want_hist["temp"]), "trainTop1acc": 1 / (16 * DP_TRAINER_STEPS) + 1e-7,
+                  "trainTop10acc": 1 / (16 * DP_TRAINER_STEPS) + 1e-7, "testTop1acc": 1 / 64 + 1e-7,
+                  "testTop10acc": 1 / 64 + 1e-7}
+        if any(diffs[k] > bounds[k] for k in keys):
+            raise AssertionError(f"data_parallel_trainer: {got} against one process {want_hist}")
+        # the state: each tensor at 1e-4 of its largest entry + 2·lr a step
+        # (Adam's ±lr on entries whose gradient is rounding noise)
+        ref = {k: v.detach().cpu() for k, v in one.state.encoder.state_dict().items()}
+        ref["clip.temp"] = one.state.clip.temp.detach().cpu()
+        worst = max(float((torch.from_numpy(tr[0]["state"][k]) - w).abs().max())
+                    / (1e-4 * float(w.abs().max()) + 2 * 5e-7 * DP_TRAINER_STEPS + 1e-6) for k, w in ref.items())
+        if not worst <= 1.0:
+            raise AssertionError(f"data_parallel_trainer: the state differs from one process ({worst:.3g}x the bound)")
+        emit(phase="data_parallel_trainer", backend="gloo", world=2, device=b[0]["device"],
+             config="flagship, f32, lr 5e-7, 12 steps of global B=16 (8 a rank) on host batches, eval of 64, "
+                    "checkpoint (the primary writes) and resume", history=got, one_process_history=want_hist,
+             diffs=diffs, state_err_over_bound=worst, resumed_bitwise=True, ranks_bit_identical=True,
+             launches_per_rank=[r["launches"] for r in tr], epoch_seconds_check_only=tr[0]["epoch_seconds"],
+             gloo_spawn_seconds=gloo_s)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -803,18 +1218,8 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t, libraries=[os.path.relpath(p, ROOT) for p in libs])
 
     # every path's run sets all launch counters to 0 just before and reads them all just after
-    counted = {"subject_matmul": subject_matmul, "conv_block_fused": conv_block_fused,
-               "tap_conv_dw": tap_conv_dw, "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv,
-               **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()},
-               **{f"conv_block_train.{name}_tile": fn for name, fn in cbt.TILE.items()}, "conv_block_train.F31": cbt.f31,
-               "conv_block_train.F31_tile": cbt.f31_tile}
-
-    def reset_counts():
-        for fn in counted.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {name: fn.launches for name, fn in counted.items()}
+    counted = launch_counters()
+    reset_counts, read_counts = _reset_counts, _read_counts
 
     def expect(**nonzero):
         """Launch counts with every counter 0 except those named (K6's stages as F1=..., K7 as F31=...)."""
@@ -1491,6 +1896,8 @@ def main() -> int:
              device_ops_per_step=sum(n for n, _ in by_name.values()) / 3,
              top_kernels_ms_per_step={name[:80]: us / 3e3 for name, (_, us) in top})
 
+    step_ms = {}  # the phase-9 paths' ms per step, beside which phase 15 prints its own
+
     def train_path(phase, impl, fused, n_steps, expected, profiled):
         cfg_, enc_, state_ = flagship_state(impl)
         step_ = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused)
@@ -1499,6 +1906,7 @@ def main() -> int:
             state_, m = step_(state_, batch, drop_gen)
             warm.append(m["loss"])
         m, losses, ms, host_ms, launches = run_steps(step_, state_, n_steps)
+        step_ms[phase] = {"cuda_events": ms, "host_clock": host_ms}
         losses = torch.stack(warm + losses).tolist()
         per_step_ = {k: v / n_steps for k, v in launches.items()}
         emit(phase=phase, config="flagship: B=64 C=208 T=360 D1=270 D2=320 F=1024 K=32 S=27, bf16, "
@@ -2079,11 +2487,14 @@ def main() -> int:
     # -- 13e. xlsr-53's call on the device alone ------------------------------
     wav2vec2_device_timing(args.seed)
 
+    # -- 15. data parallelism -------------------------------------------------------------
+    dp_paths = data_parallel_phase(step_ms, expect)
+
     # -- 14. summary ---------------------------------------------------------
     paths = {"serve": launches, "train": train_launches, "eval": eval_launches, "fused_train": fused_launches,
              "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"], "tool": tool_launches,
              "trainer": trainer_launches, "trainer_fused": fused_trainer_launches, "preemption": preempt_launches,
-             "checkpoint_serve": serve_ck_launches, **prep_paths, **cli_paths}
+             "checkpoint_serve": serve_ck_launches, **prep_paths, **cli_paths, **dp_paths}
 
     def launches_of(kernel):
         return sum(p[kernel] for p in paths.values())

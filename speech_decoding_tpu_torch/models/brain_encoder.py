@@ -23,7 +23,9 @@ across unchanged:
     dW;
   * train mode normalizes with batch statistics and updates the running
     ones in place (torch.nn.BatchNorm1d semantics), and applies one spatial
-    dropout mask to the whole batch;
+    dropout mask to the whole batch; under a data-parallel ``group`` the
+    statistics are those of the global batch (synchronized BatchNorm, as
+    GSPMD gives JAX's module path on a mesh);
   * GELU is exact (erf); initializers match torch defaults
     (U(±1/sqrt(fan_in)) for conv weights and biases, U(0, 1) for z), drawn
     from the caller's ``torch.Generator``.
@@ -44,6 +46,8 @@ from torch.nn import functional as Fn
 from speech_decoding_tpu_torch.ops.conv_block import dilations
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
 from speech_decoding_tpu_torch.ops.tap_conv import PallasTapConv, tap_conv_dw
+from speech_decoding_tpu_torch.parallel.collectives import all_reduce_sum
+from speech_decoding_tpu_torch.parallel.mesh import DataGroup
 
 # tpu.conv_impl values: all compute the same function. The port runs the
 # first four through TapConv (so every train step on the card runs K2) and
@@ -69,7 +73,12 @@ class TorchBatchNorm(nn.Module):
     running ``mean``/``var`` (buffers), all f32. In train mode the batch
     statistics are the f32 mean and E[x²] − mean² over (B, T), and the
     running ones move by momentum 0.1 towards the mean and the unbiased
-    variance (n = B·T), in place."""
+    variance (n = B·T), in place. Under a data-parallel ``group`` each
+    rank passes its own rows: the per-channel (Σx, Σx²) are summed over the
+    ranks by a differentiable all-reduce (whose backward sums the
+    cotangents, so each rank's gradient is its share of the global one),
+    and the mean, variance and n = W·B·T are the global batch's, identical
+    on every rank."""
 
     momentum = 0.1
 
@@ -82,12 +91,18 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, group: Optional[DataGroup] = None) -> torch.Tensor:
         if train:
             xf = x.float()
-            mean = xf.mean(dim=(0, 1))
-            var = (xf * xf).mean(dim=(0, 1)) - mean * mean
             n = x.shape[0] * x.shape[1]
+            if group is None:
+                mean = xf.mean(dim=(0, 1))
+                var = (xf * xf).mean(dim=(0, 1)) - mean * mean
+            else:
+                n *= group.world
+                sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 1)), (xf * xf).sum(dim=(0, 1))]), group)
+                mean = sums[0] / n
+                var = sums[1] / n - mean * mean
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(1 - m).add_(m * mean)
@@ -262,13 +277,13 @@ class ConvBlock(nn.Module):
         self.batchnorm1 = TorchBatchNorm(D2, compute_dtype=dt)
         self.conv2 = Conv1d(D2, 2 * D2, 3, 2, dt, generator, conv_impl)
 
-    def forward(self, X: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, X: torch.Tensor, train: bool = False, group: Optional[DataGroup] = None) -> torch.Tensor:
         Y = self.conv0(X)
         if self.k > 0:
             Y = Y + X  # skip [ref: models.py:156]
-        Y = _gelu(self.batchnorm0(Y, train))
+        Y = _gelu(self.batchnorm0(Y, train, group))
         Y = self.conv1(Y) + Y
-        Y = _gelu(self.batchnorm1(Y, train))
+        Y = _gelu(self.batchnorm1(Y, train, group))
         Y = self.conv2(Y)
         a, b = Y.chunk(2, dim=-1)  # GLU over channels [ref: models.py:164]
         return a * torch.sigmoid(b)
@@ -327,11 +342,12 @@ class BrainEncoder(nn.Module):
 
     def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor, train: bool = False,
                 drop_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, group: Optional[DataGroup] = None) -> torch.Tensor:
         """Z from X. ``train`` uses batch statistics (updating the running
         ones in place) and spatial dropout: the (C,) ``drop_mask`` if given
         (the tests pass the mask JAX draws), else one drawn from
-        ``generator``."""
+        ``generator``. ``group``: X is this rank's block of a data-parallel
+        batch and the BatchNorm statistics are the global batch's."""
         if drop_mask is not None and not train:
             raise ValueError("drop_mask applies in train mode only")
         if train and drop_mask is None:
@@ -340,7 +356,7 @@ class BrainEncoder(nn.Module):
             X = X.transpose(-1, -2)  # reference (B, C, T) -> internal (B, T, C)
         X = self.subject_block(X.to(self.compute_dtype), subject_idxs, drop_mask)
         for blk in self.conv_blocks:
-            X = blk(X, train)
+            X = blk(X, train, group)
         X = _gelu(self.conv_final1(X))
         X = _gelu(self.conv_final2(X))
         return X if self.channels_last_io else X.transpose(-1, -2)

@@ -12,8 +12,10 @@ unchanged). In order [ref: speech_decoding/models.py:169-196]:
 
 plus the torch-style running-statistics update (momentum 0.1, unbiased
 variance with n = B·T) written into each block's ``TorchBatchNorm`` buffers
-in place, as the module path does. There is no sharded variant yet (JAX's
-``fused_train_forward_sharded``).
+in place, as the module path does. JAX's ``fused_train_forward_sharded``
+is the ``group`` argument: X is the rank's block, K6's BN sums are summed
+over the ranks (``ops.conv_block_train``), and n = W·B·T, so every rank
+writes the global batch's running statistics.
 """
 
 from __future__ import annotations
@@ -35,22 +37,24 @@ def _running_update(bn, mean: torch.Tensor, var_biased: torch.Tensor, n: int) ->
 
 def fused_train_forward(encoder, X: torch.Tensor, subject_idxs: torch.Tensor,
                         drop_mask: Optional[torch.Tensor] = None,
-                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None, group=None) -> torch.Tensor:
     """Z of ``encoder`` (a ``BrainEncoder``) in train mode, its BN running
     statistics updated in place. Spatial dropout takes ``drop_mask`` (C,) if
-    given, else draws one from ``generator``, as the module path does."""
+    given, else draws one from ``generator``, as the module path does.
+    ``group`` (a ``parallel.DataGroup``): synchronized BatchNorm over the
+    ranks' blocks."""
     if drop_mask is None:
         drop_mask = spatial_dropout_mask(generator, encoder.loc, encoder.d_drop)
     if not encoder.channels_last_io:
         X = X.transpose(-1, -2)
     h = encoder.subject_block(X.to(encoder.compute_dtype), subject_idxs, drop_mask)
-    n = h.shape[0] * h.shape[1]
+    n = h.shape[0] * h.shape[1] * (1 if group is None else group.world)
     for k, blk in enumerate(encoder.conv_blocks):
         bn0, bn1 = blk.batchnorm0, blk.batchnorm1
         h, (m0, v0, m1, v1) = conv_block_train(
             h, blk.conv0.kernel, blk.conv0.bias, bn0.scale, bn0.bias,
             blk.conv1.kernel, blk.conv1.bias, bn1.scale, bn1.bias,
-            blk.conv2.kernel, blk.conv2.bias, k, bn0.eps,
+            blk.conv2.kernel, blk.conv2.bias, k, bn0.eps, group,
         )
         _running_update(bn0, m0, v0, n)
         _running_update(bn1, m1, v1, n)

@@ -10,12 +10,21 @@ pointer and the stream cross as ``c_void_p``, every C entry returns the
 ``cudaGetLastError()`` of its launch, and ``check`` raises on a non-zero
 code. Nothing here includes PyTorch's headers, so a build takes seconds.
 
+Several processes may build at once (the ranks of a data-parallel run
+start together): a build holds an exclusive ``flock`` on
+``build/kernels/.lock`` (released by the kernel if the process dies), so
+the second process finds the libraries on disk; each library is written
+under a temporary name and renamed into place, so no process loads a
+half-written file.
+
 No JAX counterpart: the JAX package's Pallas kernels compile inside XLA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -73,14 +82,30 @@ def _finish_build(proc: subprocess.Popen) -> None:
     os.replace(proc.tmp, proc.out)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """This process's threads, then every process on the machine, one at a
+    time."""
+    with _lock:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, ".lock"), "w") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str]) -> List[str]:
     """Compile every named kernel whose library is not on disk yet, one
     ``nvcc`` per source, all started together. Returns the library paths."""
     names = list(names)
-    with _lock:
-        procs = [_start_build(n) for n in names if not os.path.exists(_lib_path(n))]
-        for p in procs:
-            _finish_build(p)
+    missing = [n for n in names if not os.path.exists(_lib_path(n))]
+    if missing:
+        with _build_lock():
+            procs = [_start_build(n) for n in missing if not os.path.exists(_lib_path(n))]
+            for p in procs:
+                _finish_build(p)
     return [_lib_path(n) for n in names]
 
 

@@ -73,6 +73,7 @@ from speech_decoding_tpu_torch.ops.conv_block import _conv3, _gelu_exact_f32, di
 from speech_decoding_tpu_torch.ops.tap_conv import (
     _sms, flip_taps, pack_weights, pad_channels, tap_conv_dw, tap_conv_dw_plain,
 )
+from speech_decoding_tpu_torch.parallel.collectives import all_reduce_
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # time rows a conv tile: csrc/conv_wg.cuh wg::TM, csrc/tap3.cuh TM (also the BN-backward pass's tile)
@@ -536,56 +537,75 @@ def stage_inputs(B: int, T: int, Cin: int, C: int, k: int, dtype, device, genera
 # -- the differentiable block ------------------------------------------------------------
 
 
+def _group_sum(s: torch.Tensor, group) -> torch.Tensor:
+    """``s`` summed over the ranks of ``group`` (a new tensor; ``s`` itself
+    unchanged), or ``s`` with no group."""
+    return s if group is None else all_reduce_(s.clone(), group)
+
+
 class _ConvBlockTrain(torch.autograd.Function):
     """JAX's ``conv_block_train`` custom VJP (``_fwd_rule``/``_bwd_rule``):
     the saved tensors are its residuals, x, y0 and y1 with the statistics;
-    h0, h1 and y2 are recomputed in the backward."""
+    h0, h1 and y2 are recomputed in the backward.
+
+    Under a data-parallel ``group`` (JAX's ``axis_name``) x is this rank's
+    block, n = W·B·T, and the BN sums are summed over the ranks where JAX
+    psums them: s0 after F1, s1 after F2, s_bn1 after B1 and s_bn0 after
+    B2. The BN scale and bias gradients it returns stay this rank's partial
+    sums, as JAX leaves them: the train step's gradient all-reduce sums them
+    once."""
 
     @staticmethod
-    def forward(ctx, x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k, eps):
+    def forward(ctx, x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k, eps, group):
         dt = x.dtype
-        n = x.shape[0] * x.shape[1]
+        n = x.shape[0] * x.shape[1] * (1 if group is None else group.world)
         x = x.contiguous()
         wd = [w.to(dt).contiguous() for w in (w0, w1, w2)]
         y0, s0 = f1(x, wd[0], b0.float().contiguous(), k)
+        s0 = _group_sum(s0, group)
         m0, v0, inv0 = _stats_from_sums(s0, n, eps)
         mi0, gb0 = torch.stack([m0, inv0]), torch.stack([g0, beta0]).float()
         y1, s1 = f2(y0, mi0, gb0, wd[1], b1.float().contiguous(), k)
+        s1 = _group_sum(s1, group)
         m1, v1, inv1 = _stats_from_sums(s1, n, eps)
         mi1, gb1 = torch.stack([m1, inv1]), torch.stack([g1, beta1]).float()
         out = f3(y1, mi1, gb1, wd[2], b2.float().contiguous())
         ctx.save_for_backward(x, y0, y1, mi0, gb0, mi1, gb1, w0, w1, w2, b2, g0, g1)
-        ctx.k = k
+        ctx.k, ctx.group = k, group
         ctx.mark_non_differentiable(m0, v0, m1, v1)
         return out, m0, v0, m1, v1
 
     @staticmethod
     def backward(ctx, dout, *_stat_grads):  # the statistics are aux outputs: no cotangent
         x, y0, y1, mi0, gb0, mi1, gb1, w0, w1, w2, bias2, g0, g1 = ctx.saved_tensors
-        k, dt = ctx.k, x.dtype
-        n = x.shape[0] * x.shape[1]
+        k, group, dt = ctx.k, ctx.group, x.dtype
+        n = x.shape[0] * x.shape[1] * (1 if group is None else group.world)
         w0d, w1d, w2d = (w.to(dt) for w in (w0, w1, w2))
         du1, s_bn1, dw2, db2 = b1(dout.to(dt).contiguous(), y1, mi1, gb1, w2d.contiguous(),
                                   bias2.float().contiguous(), flip_taps(w2d))
-        g1f = g1.float()
-        g1c = torch.stack([g1f, g1f * s_bn1[0] / n, g1f * s_bn1[1] / n])
+        # (Σdu1, Σdu1·x̂1) are BN1's bias and scale gradients (this rank's
+        # share); the correction terms need the global sums
+        g1f, t1 = g1.float(), _group_sum(s_bn1, group)
+        g1c = torch.stack([g1f, g1f * t1[0] / n, g1f * t1[1] / n])
         du0, s_bn0, dw1, db1 = b2(du1, y1, mi1, g1c, y0, mi0, gb0, flip_taps(w1d), k)
-        g0f = g0.float()
-        g0c = torch.stack([g0f, g0f * s_bn0[0] / n, g0f * s_bn0[1] / n])
+        g0f, t0 = g0.float(), _group_sum(s_bn0, group)
+        g0c = torch.stack([g0f, g0f * t0[0] / n, g0f * t0[1] / n])
         dx, dw0, db0 = b3(du0, y0, mi0, g0c, x, flip_taps(w0d), k)
         return (dx, dw0.to(w0.dtype), db0, s_bn0[1], s_bn0[0], dw1.to(w1.dtype), db1, s_bn1[1], s_bn1[0],
-                dw2.to(w2.dtype), db2, None, None)
+                dw2.to(w2.dtype), db2, None, None, None)
 
 
 def conv_block_train(x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k: int,
-                     eps: float = 1e-5) -> Tuple[torch.Tensor, Stats]:
+                     eps: float = 1e-5, group=None) -> Tuple[torch.Tensor, Stats]:
     """Train-mode ConvBlock k [ref: models.py:120-166], fused. x (B, T, Cin)
     in the compute dtype; w* (3, Cin/C, C/2C) conv taps (cast to x's dtype);
     b* conv biases; g*/beta* BN scale and bias (C,). Returns (out (B, T, C),
     (m0, v0, m1, v1)): the batch mean and biased variance of each BN, which
     the caller folds into the running statistics. The statistics are not
-    differentiable (JAX's aux outputs)."""
-    out, m0, v0, m1, v1 = _ConvBlockTrain.apply(x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k, eps)
+    differentiable (JAX's aux outputs). ``group`` (a ``parallel.DataGroup``):
+    x is this rank's block and the statistics are the global batch's
+    (synchronized BatchNorm)."""
+    out, m0, v0, m1, v1 = _ConvBlockTrain.apply(x, w0, b0, g0, beta0, w1, b1, g1, beta1, w2, b2, k, eps, group)
     return out, (m0, v0, m1, v1)
 
 

@@ -1,0 +1,151 @@
+"""The collectives of the data-parallel step, on a ``DataGroup``.
+
+No single JAX counterpart: JAX writes ``psum``, ``pmax`` and ``all_gather``
+inside ``shard_map`` (``parallel/clip_sharded.py``,
+``ops/pallas/conv_block_train.py``) and lets GSPMD insert the rest, and its
+transpose rules give each collective its backward. Here each is one
+``torch.distributed`` call on the group's device, and the two that sit on
+the differentiated path are ``torch.autograd.Function``s whose backward is
+the collective's transpose:
+
+  * ``all_reduce_sum``: y = Σ_ranks x; its backward sums the cotangents of
+    every rank's copy of y (another all-reduce);
+  * ``all_gather_rows``: y = concat of every rank's x (B = W·b rows); its
+    backward all-reduces the (B, ...) cotangent and takes the rank's b rows
+    (gloo has no reduce-scatter; the all-reduce runs on both backends).
+
+A step built on them gives each rank its share of the gradient of the
+global loss; ``all_reduce_grads`` then sums the shares, in one all-reduce
+of every gradient flattened. Every rank must call every collective in the
+same order, as the identical step on every rank does.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Iterable, List
+
+import torch
+import torch.distributed as dist
+
+from speech_decoding_tpu_torch.parallel.mesh import DataGroup
+
+
+def all_reduce_(t: torch.Tensor, group: DataGroup, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In place over the group's ranks (the default process group); ``t``
+    lies on the group's device. Returns ``t``."""
+    dist.all_reduce(t, op=op)
+    return t
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """Σ over the ranks of ``x``, differentiable (the backward sums the
+    cotangents over the ranks)."""
+    return _AllReduceSum.apply(x, group)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[0]
+        parts = [torch.empty_like(x) for _ in range(group.world)]
+        dist.all_gather(parts, x.contiguous())
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_(g.contiguous().clone(), ctx.group)
+        r, b = ctx.group.rank, ctx.rows
+        return g[r * b : (r + 1) * b], None
+
+
+def all_gather_rows(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """Every rank's ``x`` (b, ...) stacked in rank order: (W·b, ...),
+    differentiable. Every rank passes the same shape."""
+    return _AllGatherRows.apply(x, group)
+
+
+class _SumToAll(torch.autograd.Function):
+    """Forward: Σ over the ranks; backward: the cotangent unchanged. For a
+    loss whose value every rank reports whole (the global loss) while each
+    rank backpropagates only its own share: the shares' gradients sum to the
+    global loss's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_to_all(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    return _SumToAll.apply(x, group)
+
+
+def all_reduce_grads(params: Iterable[torch.Tensor], group: DataGroup) -> None:
+    """Sum every rank's gradients, in place: one all-reduce of all of them
+    flattened into one buffer (per dtype). Parameters without a gradient
+    are skipped; the identical step gives every rank the same set."""
+    by_dtype = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset : offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def barrier(group: DataGroup) -> None:
+    """Every rank waits for every other: a one-element all-reduce on the
+    group's device (on both backends, with no device guessed)."""
+    all_reduce_(torch.zeros(1, device=group.device), group)
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+
+
+def all_reduce_int(value: int, group: DataGroup, op=dist.ReduceOp.SUM) -> int:
+    return int(all_reduce_(torch.tensor([int(value)], dtype=torch.int64, device=group.device), group, op).item())
+
+
+def broadcast_ints(values: List[int], group: DataGroup) -> List[int]:
+    """Rank 0's ``values`` (int64) on every rank."""
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=group.device)
+    dist.broadcast(t, src=0)
+    return [int(v) for v in t.tolist()]
+
+
+def tensors_digest(tensors: Iterable[torch.Tensor]) -> bytes:
+    """sha256 of the tensors' bytes, in order (a host copy of each)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update(str((tuple(t.shape), t.dtype)).encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.digest()
+
+
+def assert_same_on_ranks(digest: bytes, group: DataGroup, what: str) -> None:
+    """Raise on every rank unless every rank's ``digest`` equals rank 0's:
+    rank 0's is broadcast, each rank compares, and a MAX all-reduce of the
+    mismatches lets all ranks raise together (none waits in a collective)."""
+    words = [int.from_bytes(digest[i : i + 7], "little") for i in range(0, len(digest), 7)]
+    differs = broadcast_ints(words, group) != words
+    if all_reduce_int(differs, group, dist.ReduceOp.MAX):
+        side = "differs from" if differs else "matches"
+        raise RuntimeError(f"{what} differs between the ranks (rank {group.rank} {side} rank 0)")

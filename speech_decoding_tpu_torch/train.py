@@ -11,8 +11,18 @@ everything runs on the card (``run(args, device=None)``: ``cuda`` unless the
 caller passes ``device="cpu"``; raises without a GPU). ``root_dir`` defaults
 to the repository root, where ``data/<dataset>/`` lies.
 
-Multi-process training is not ported: ``tpu.multihost: true`` raises
-NotImplementedError, as the Trainer does under a process group.
+Multi-process data parallelism follows the JAX CLI, one process a card
+under torchrun (``parallel/multihost.py``)::
+
+    torchrun --nproc-per-node=4 -m speech_decoding_tpu_torch.train \
+        dataset=Gwilliams2022 tpu.multihost=true checkpoint.dir=/shared/ckpt
+
+Rank 0's seed is broadcast; every rank draws the same global batch ids and
+the global batch's random session or subject choices, then keeps its own
+block (``host_local_slice``), so the global batch equals the one-process
+run's; the last partial batch is dropped; only the primary writes the run
+dir's config and logs to W&B, and checkpoints are kept only under an
+explicit shared ``checkpoint.dir``.
 """
 
 from __future__ import annotations
@@ -30,11 +40,12 @@ from speech_decoding_tpu_torch.config import load_config
 from speech_decoding_tpu_torch.data.layout import ch_locations_2d
 from speech_decoding_tpu_torch.data.sampling import iter_shuffled_batches, iter_updates_batches, random_split
 from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder
+from speech_decoding_tpu_torch.parallel.collectives import broadcast_ints
+from speech_decoding_tpu_torch.parallel.mesh import current_group
+from speech_decoding_tpu_torch.parallel.multihost import host_local_slice, maybe_init_distributed
 from speech_decoding_tpu_torch.training.checkpoint import CheckpointManager
 from speech_decoding_tpu_torch.training.preemption import PreemptionGuard
-from speech_decoding_tpu_torch.training.trainer import (
-    MULTI_PROCESS_NOT_PORTED, NoopLogger, Trainer, make_wandb_logger,
-)
+from speech_decoding_tpu_torch.training.trainer import NoopLogger, Trainer, make_wandb_logger
 from speech_decoding_tpu_torch.utils.device import resolve_device
 from speech_decoding_tpu_torch.utils.logging import cprint
 from speech_decoding_tpu_torch.utils.reproducibility import seed_everything
@@ -121,12 +132,21 @@ def resolve_seed(args) -> int:
 
 
 def run(args, device=None) -> List[Dict]:
-    """Train per the config on ``device``; returns the per-epoch metrics
-    history."""
-    if args.select("tpu.multihost", False):
-        raise NotImplementedError(MULTI_PROCESS_NOT_PORTED)
-    dev = resolve_device(device)
+    """Train per the config on ``device`` (under torchrun, the rank's card
+    ``cuda:LOCAL_RANK``, or the CPU over gloo with ``device="cpu"``);
+    returns the per-epoch metrics history."""
+    # the multi-process bootstrap comes before the first use of the card
+    # (a no-op for one process)
+    multihost = maybe_init_distributed(args, device)
+    group = current_group(device)
+    is_primary = group is None or group.is_primary
+    dev = group.device if group is not None else resolve_device(device)
     seed = resolve_seed(args)
+    if group is not None:
+        # every rank's initial parameters and global batch ids come from one
+        # shared seed: rank 0's draw, so reproducible=False stays safe
+        seed = broadcast_ints([seed], group)[0]
+        args.set_path("resolved_seed", seed)
     seed_everything(seed)
     rng = np.random.default_rng(seed)
     cprint(f"Device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}", "cyan")
@@ -152,17 +172,26 @@ def run(args, device=None) -> List[Dict]:
                 batchers[id(ds)] = DeviceResidentGwilliams(ds, store_dtype=store, channels_last=channels_last,
                                                            device=dev)
 
-        def make_batch(ds, batch_rng, ids):
+        def make_batch(ds, batch_rng, ids, choices=None):
             b = batchers.get(id(ds))
-            return b.gather(b.make_index_batch(batch_rng, ids)) if b is not None else ds.sample_batch(batch_rng, ids)
+            if b is not None:
+                return b.gather(b.make_index_batch(batch_rng, ids, choices))
+            return ds.sample_batch(batch_rng, ids, choices)
 
         def train_batches(epoch_rng):
             if args.use_sampler:
                 ids_iter = iter_updates_batches(train_pool, args.batch_size, args.updates, epoch_rng)
             else:
-                ids_iter = iter_shuffled_batches(train_pool, args.batch_size, epoch_rng)
+                ids_iter = iter_shuffled_batches(train_pool, args.batch_size, epoch_rng, drop_last=multihost)
             for ids in ids_iter:
-                yield make_batch(train_set, epoch_rng, ids)
+                if multihost:
+                    # the global batch's ids and session choices, drawn alike
+                    # on every rank; the rank materializes its block only
+                    choices = train_set.draw_choices(epoch_rng, len(ids))
+                    blk = host_local_slice(len(ids))
+                    yield make_batch(train_set, epoch_rng, ids[blk], choices[blk])
+                else:
+                    yield make_batch(train_set, epoch_rng, ids)
 
     elif args.dataset == "Brennan2018":
         from speech_decoding_tpu_torch.data.brennan2018 import Brennan2018Dataset
@@ -180,8 +209,14 @@ def run(args, device=None) -> List[Dict]:
 
         def train_batches(epoch_rng):
             for ids in iter_shuffled_batches(train_pool, args.batch_size, epoch_rng,
-                                             drop_last=accumulate_steps > 1):
-                yield train_set.sample_batch(epoch_rng, ids)
+                                             drop_last=accumulate_steps > 1 or multihost):
+                if multihost:
+                    # the global random-subject draw, the rank's block (as above)
+                    choices = train_set.draw_choices(epoch_rng, len(ids))
+                    blk = host_local_slice(len(ids))
+                    yield train_set.sample_batch(epoch_rng, ids[blk], choices[blk])
+                else:
+                    yield train_set.sample_batch(epoch_rng, ids)
 
     else:
         raise ValueError("Unknown dataset")
@@ -191,7 +226,7 @@ def run(args, device=None) -> List[Dict]:
     # resolved one
     encoder = BrainEncoder.from_config(args, loc, num_subjects,
                                        generator=torch.Generator().manual_seed(int(args.get("seed", 0))))
-    logger = make_wandb_logger(args) if args.use_wandb else NoopLogger()
+    logger = make_wandb_logger(args) if args.use_wandb and is_primary else NoopLogger()
 
     # per-run output isolation, like the reference's fresh Hydra chdir'd
     # output dir [ref: configs/config.yaml:51-54]: unless checkpoint.dir or
@@ -200,7 +235,17 @@ def run(args, device=None) -> List[Dict]:
     # snapshot and checkpoints inside
     ckpt_dir = args.select("checkpoint.dir", None)
     run_dir = args.select("run_dir", None)
-    if run_dir is None and ckpt_dir is None:
+    if multihost:
+        # checkpointing is symmetric (every rank has a manager on one shared
+        # directory, or none has): only an explicit checkpoint.dir gives one.
+        # Per-rank timestamped run dirs would differ, so only the primary
+        # writes the run dir's config snapshot
+        if ckpt_dir is None and is_primary:
+            cprint("multi-process run without checkpoint.dir: checkpointing DISABLED "
+                   "(set checkpoint.dir on a shared filesystem)", "yellow")
+        if not is_primary:
+            run_dir = None
+    elif run_dir is None and ckpt_dir is None:
         name = "_".join(str(p) for p in (args.get("run_name", "run"), args.get("split_mode", "")) if p)
         run_dir = os.path.join(args.root_dir, "outputs", f"{datetime.now():%Y-%m-%d/%H-%M-%S}_{name}")
     if run_dir is not None:
@@ -208,19 +253,21 @@ def run(args, device=None) -> List[Dict]:
         with open(os.path.join(run_dir, "config.yaml"), "w") as f:
             yaml.safe_dump(args.to_dict(), f, default_flow_style=False)
         cprint(f"Run dir: {run_dir}", "cyan")
-        if ckpt_dir is None:
+        if ckpt_dir is None and not multihost:
             # absolute: run_dir already includes root_dir
             ckpt_dir = os.path.abspath(os.path.join(run_dir, "checkpoints"))
-    if not os.path.isabs(ckpt_dir):
-        ckpt_dir = os.path.join(args.root_dir, ckpt_dir)
-    ckpts = CheckpointManager(
-        ckpt_dir,
-        keep=int(args.select("checkpoint.keep", 3)),
-        every_epochs=int(args.select("checkpoint.every_epochs", 1)),
-        # best-model tracking (checkpoint.track_metric="" disables)
-        track_metric=args.select("checkpoint.track_metric", "testTop10acc") or None,
-        track_mode=str(args.select("checkpoint.track_mode", "max")),
-    )
+    ckpts = None
+    if ckpt_dir is not None:
+        if not os.path.isabs(ckpt_dir):
+            ckpt_dir = os.path.join(args.root_dir, ckpt_dir)
+        ckpts = CheckpointManager(
+            ckpt_dir,
+            keep=int(args.select("checkpoint.keep", 3)),
+            every_epochs=int(args.select("checkpoint.every_epochs", 1)),
+            # best-model tracking (checkpoint.track_metric="" disables)
+            track_metric=args.select("checkpoint.track_metric", "testTop10acc") or None,
+            track_mode=str(args.select("checkpoint.track_mode", "max")),
+        )
     trainer = Trainer(encoder, args, accumulate_steps=accumulate_steps, collate=collate, logger=logger,
                       checkpoints=ckpts, device=dev)
 
@@ -254,7 +301,8 @@ def run(args, device=None) -> List[Dict]:
             trainer.run_epoch(epoch, train_batches(epoch_rng), tb)
             if trainer.preempted:
                 break
-        trainer.checkpoints.wait()
+        if trainer.checkpoints:
+            trainer.checkpoints.wait()
     finally:
         if guard is not None:
             guard.uninstall()

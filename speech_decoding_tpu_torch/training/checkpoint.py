@@ -17,6 +17,13 @@ the next step). A file is written under a
 temporary name and then renamed, so a save that is killed never leaves a
 half checkpoint. Saves are synchronous: ``wait()`` returns at once.
 
+Under data parallelism checkpointing is symmetric, as orbax's is across
+JAX processes: every rank has a manager on one shared directory, or none
+has; every rank calls ``save(..., group=...)``, the primary (rank 0) writes
+(the replicas are identical) and all ranks then meet at a barrier, so no
+rank runs ahead of a file it may restore; every rank restores from the
+same file.
+
 Orbax directories written by the JAX package are not read. Their
 parameters reach the port through ``models/params_bridge.py``.
 """
@@ -29,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from speech_decoding_tpu_torch.parallel.collectives import barrier
 from speech_decoding_tpu_torch.training.state import TrainState
 from speech_decoding_tpu_torch.utils.logging import cprint
 
@@ -116,10 +124,19 @@ class CheckpointManager:
 
     # -- the JAX package's API ---------------------------------------------------
 
-    def save(self, epoch: int, state: TrainState, extra: Optional[Dict] = None, force: bool = False) -> None:
+    def save(self, epoch: int, state: TrainState, extra: Optional[Dict] = None, force: bool = False,
+             group=None) -> None:
         """``extra``: the epoch's metrics; feeds best-model tracking when
         ``track_metric`` is set. ``force`` bypasses the ``every_epochs``
-        cadence (preemption-requested mid-epoch saves)."""
+        cadence (preemption-requested mid-epoch saves). ``group`` (a
+        ``parallel.DataGroup``): every rank calls, the primary writes, then
+        a barrier."""
+        if group is None or group.is_primary:
+            self._save(epoch, state, extra, force)
+        if group is not None:
+            barrier(group)
+
+    def _save(self, epoch: int, state: TrainState, extra: Optional[Dict], force: bool) -> None:
         payload = None
         if self.best_directory is not None and extra and self.track_metric in extra:
             value = float(extra[self.track_metric])

@@ -11,6 +11,11 @@ cycle through a checkpoint.
 JAX donates its state to each step and gets a new one back; the port
 updates the modules and the optimizer in place, and a step returns the same
 ``TrainState`` object.
+
+Data-parallel ranks each hold the whole state, which must be the same on
+every rank: each builds its encoder from the shared seed, as each JAX host
+initializes from the same key, and ``create_train_state(group=...)``
+checks it against rank 0's (``state_digest``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from torch import nn
 
 from speech_decoding_tpu_torch.models.loss import CLIPLoss
+from speech_decoding_tpu_torch.parallel.collectives import assert_same_on_ranks, tensors_digest
 from speech_decoding_tpu_torch.utils.device import resolve_device
 
 
@@ -101,15 +107,41 @@ class TrainState:
         return self.clip.temp.device
 
 
+def _tensors(obj):
+    """Every tensor of a (nested) optimizer state, in a fixed order."""
+    if torch.is_tensor(obj):
+        yield obj
+    elif isinstance(obj, dict):
+        for k in sorted(obj, key=str):
+            yield from _tensors(obj[k])
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def state_digest(state: TrainState) -> bytes:
+    """sha256 of the whole state's bytes: parameters, BN running statistics,
+    temperature, the optimizer's tensors (Adam's moments and step counts,
+    MultiSteps' accumulated gradients) and the step. Equal digests on every
+    rank mean bit-identical replicas."""
+    return tensors_digest([*state.encoder.state_dict().values(), state.clip.temp,
+                           *_tensors(state.optimizer.state_dict()), torch.tensor(state.step)])
+
+
 def create_train_state(encoder: nn.Module, init_temperature: float = 5.1, lr: float = 3e-4,
                        accumulate_steps: int = 1,
-                       device: Optional[Union[str, torch.device]] = None) -> TrainState:
-    """Move ``encoder`` to ``device`` (default ``cuda``; raises without a GPU
-    unless ``device="cpu"``), add the CLIP temperature and build the
-    optimizer over both. The encoder's weights are its own initialization
-    (seeded by the generator it was built with)."""
-    dev = resolve_device(device)
+                       device: Optional[Union[str, torch.device]] = None, group=None) -> TrainState:
+    """Move ``encoder`` to ``device`` (default ``cuda``, or the group's
+    device; raises without a GPU unless ``device="cpu"``), add the CLIP
+    temperature and build the optimizer over both. The encoder's weights are
+    its own initialization (seeded by the generator it was built with).
+    ``group`` (a ``parallel.DataGroup``): raises on every rank unless every
+    rank built the same state as rank 0."""
+    dev = resolve_device(group.device if device is None and group is not None else device)
     encoder = encoder.to(dev)
     clip = CLIPLoss(init_temperature).to(dev)
     opt = make_optimizer([*encoder.parameters(), clip.temp], lr, accumulate_steps)
-    return TrainState(step=0, encoder=encoder, clip=clip, optimizer=opt)
+    state = TrainState(step=0, encoder=encoder, clip=clip, optimizer=opt)
+    if group is not None:
+        assert_same_on_ranks(state_digest(state), group, "the initial train state")
+    return state

@@ -24,8 +24,19 @@ counterpart here (the state is updated in place).
 
 ``fused_blocks=True`` (JAX's ``tpu.fused_train_blocks``) runs the train
 forward through ``models.fused_train.fused_train_forward``: the five
-ConvBlocks as K6 on the card, their plain versions on the CPU. JAX's
-``fused_mesh`` (the sharded fused forward) is not ported yet.
+ConvBlocks as K6 on the card, their plain versions on the CPU.
+
+``group`` (a ``parallel.DataGroup``; JAX's mesh, and ``fused_mesh`` for the
+fused path) makes a step one step on the global batch of W·b rows, each
+rank passing its own b rows: synchronized BatchNorm on either path, the
+global CLIP loss (``parallel.clip_sharded``: its value whole on every rank,
+each rank's backward its share), top-1/top-10 of the global batch from the
+rank's rows of the logits, and one all-reduce (SUM) of every gradient, the
+temperature's included, before Adam. Every rank then holds the same
+parameters, statistics and Adam moments. The drop mask must be passed and
+be the same on every rank (the Trainer draws it from (seed, step)). The
+eval steps take no group: every rank evaluates the whole test batch, as
+JAX's multi-process eval does.
 """
 
 from __future__ import annotations
@@ -39,6 +50,9 @@ from speech_decoding_tpu_torch.models.fused_train import fused_train_forward
 from speech_decoding_tpu_torch.models.loss import clip_loss
 from speech_decoding_tpu_torch.ops.retrieval import retrieval_metrics_kernel
 from speech_decoding_tpu_torch.ops.scaling import apply_scale_stats, gwilliams_collate
+from speech_decoding_tpu_torch.parallel.clip_sharded import accuracy_from_local_similarity, clip_loss_sharded
+from speech_decoding_tpu_torch.parallel.collectives import all_reduce_grads
+from speech_decoding_tpu_torch.parallel.mesh import DataGroup
 from speech_decoding_tpu_torch.training.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -56,49 +70,66 @@ def _maybe_collate(batch: Batch, collate: Optional[Dict]) -> torch.Tensor:
                              clamp_lim=collate["clamp_lim"], do_clamp=collate["clamp"])
 
 
-def _train_forward(state: TrainState, batch: Batch, collate, reduction, generator, drop_mask, fused_blocks=False):
+def _train_forward(state: TrainState, batch: Batch, collate, reduction, generator, drop_mask, fused_blocks=False,
+                   group: Optional[DataGroup] = None):
+    if group is not None and drop_mask is None:
+        raise ValueError("a data-parallel step takes the drop_mask: every rank must drop the same sensors")
     X = _maybe_collate(batch, collate)
     if fused_blocks:
-        Z = fused_train_forward(state.encoder, X, batch["subject_idxs"], drop_mask, generator)
+        Z = fused_train_forward(state.encoder, X, batch["subject_idxs"], drop_mask, generator, group)
     else:
-        Z = state.encoder(X, batch["subject_idxs"], train=True, drop_mask=drop_mask, generator=generator)
-    return clip_loss(batch["Y"], Z, state.clip.temp[0], reduction, return_logits=True)
+        Z = state.encoder(X, batch["subject_idxs"], train=True, drop_mask=drop_mask, generator=generator,
+                          group=group)
+    if group is None:
+        return clip_loss(batch["Y"], Z, state.clip.temp[0], reduction, return_logits=True)
+    return clip_loss_sharded(batch["Y"], Z, state.clip.temp[0], group, reduction, return_logits=True)
 
 
-def _metrics(state: TrainState, logits: torch.Tensor, loss: torch.Tensor) -> Metrics:
+def _metrics(state: TrainState, logits: torch.Tensor, loss: torch.Tensor, group: Optional[DataGroup] = None
+             ) -> Metrics:
     # logits[i, j] = Ŷ_i·Ẑ_j·e^temp: the cosine similarity in the reference's
-    # orientation up to a positive factor, so diagonal ranks need no second pass
-    top1, top10 = retrieval_accuracy_from_similarity(logits.detach(), ks=(1, 10))
+    # orientation up to a positive factor, so diagonal ranks need no second
+    # pass; under a group, the rank's rows of the global batch's logits
+    if group is None:
+        top1, top10 = retrieval_accuracy_from_similarity(logits.detach(), ks=(1, 10))
+    else:
+        top1, top10 = accuracy_from_local_similarity(logits.detach(), group, ks=(1, 10))
     return {"loss": loss.detach(), "top1": top1, "top10": top10,
             "temp": state.clip.temp.detach()[0].clone()}
 
 
-def make_train_step(reduction: str = "mean", collate: Optional[Dict] = None, fused_blocks: bool = False
-                    ) -> Callable[..., Tuple[TrainState, Metrics]]:
+def make_train_step(reduction: str = "mean", collate: Optional[Dict] = None, fused_blocks: bool = False,
+                    group: Optional[DataGroup] = None) -> Callable[..., Tuple[TrainState, Metrics]]:
     """``step(state, batch, generator=None, drop_mask=None) -> (state,
     metrics)``: one optimizer step, in place. Metrics are 0-dim tensors on
     the state's device (loss, top1, top10, and temp after the update).
-    ``fused_blocks`` runs the ConvBlocks as K6 (same function)."""
+    ``fused_blocks`` runs the ConvBlocks as K6 (same function); ``group``
+    makes it a data-parallel step over the ranks' blocks (module
+    docstring)."""
 
     def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
                    drop_mask: Optional[torch.Tensor] = None):
         state.optimizer.zero_grad(set_to_none=True)
-        logits, loss = _train_forward(state, batch, collate, reduction, generator, drop_mask, fused_blocks)
+        logits, loss = _train_forward(state, batch, collate, reduction, generator, drop_mask, fused_blocks, group)
         loss.backward()
+        if group is not None:
+            all_reduce_grads([*state.encoder.parameters(), state.clip.temp], group)
         state.optimizer.step()
         state.step += 1
-        return state, _metrics(state, logits, loss)
+        return state, _metrics(state, logits, loss, group)
 
     return train_step
 
 
-def make_train_step_scan(reduction: str = "mean", collate: Optional[Dict] = None, fused_blocks: bool = False
-                         ) -> Callable[..., Tuple[TrainState, Metrics]]:
+def make_train_step_scan(reduction: str = "mean", collate: Optional[Dict] = None, fused_blocks: bool = False,
+                         group: Optional[DataGroup] = None) -> Callable[..., Tuple[TrainState, Metrics]]:
     """``steps(state, batches, generator=None, drop_masks=None)``: k train
     steps over a stacked batch (leading axis k on every tensor; drop_masks
     (k, C)), the same as k calls of the single step (JAX runs them in one
-    ``lax.scan``). Metrics get a leading k axis."""
-    single = make_train_step(reduction, collate, fused_blocks)
+    ``lax.scan``). Metrics get a leading k axis. Under a ``group`` each rank
+    passes its (k, b, ...) block of the stacked global batch
+    (``parallel.shard_batch(batches, group, axis=1)``)."""
+    single = make_train_step(reduction, collate, fused_blocks, group)
 
     def train_steps(state: TrainState, batches: Batch, generator: Optional[torch.Generator] = None,
                     drop_masks: Optional[torch.Tensor] = None):
@@ -112,18 +143,18 @@ def make_train_step_scan(reduction: str = "mean", collate: Optional[Dict] = None
     return train_steps
 
 
-def make_train_forward_step(reduction: str = "mean", collate: Optional[Dict] = None
-                            ) -> Callable[..., Tuple[TrainState, Metrics]]:
+def make_train_forward_step(reduction: str = "mean", collate: Optional[Dict] = None,
+                            group: Optional[DataGroup] = None) -> Callable[..., Tuple[TrainState, Metrics]]:
     """Train-mode forward without a parameter update: batch-stat BN with the
     running statistics updated, spatial dropout, metrics — what the
     reference's non-final Brennan batches effectively do
-    [ref: train.py:205-209]."""
+    [ref: train.py:205-209]. ``group`` as in ``make_train_step``."""
 
     def forward_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
                      drop_mask: Optional[torch.Tensor] = None):
         with torch.no_grad():
-            logits, loss = _train_forward(state, batch, collate, reduction, generator, drop_mask)
-        return state, _metrics(state, logits, loss)
+            logits, loss = _train_forward(state, batch, collate, reduction, generator, drop_mask, group=group)
+        return state, _metrics(state, logits, loss, group)
 
     return forward_step
 

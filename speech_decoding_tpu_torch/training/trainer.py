@@ -14,11 +14,17 @@ Where the port differs from the JAX Trainer:
   * **Fused blocks.** JAX ignores ``tpu.fused_train_blocks`` off a TPU. The
     port runs K6 on the card and its plain stages on the CPU, as
     ``make_train_step(fused_blocks=True)`` does.
-  * **Mesh and multi-host.** There is no mesh and no multi-host batch
-    placement: with ``torch.distributed`` initialized at a world size above
-    1 the constructor raises NotImplementedError. The preemption cadence
-    logic is kept (``_preempt_check``); its agreement is an all-reduce only
-    where a process group exists.
+  * **Data parallelism.** Where ``torch.distributed`` is initialized the
+    Trainer is one rank of the "data" group (``parallel.DataGroup``; its
+    device ``cuda:LOCAL_RANK`` unless the caller names one): its steps are
+    data-parallel steps on the global batch (``training/steps.py``), each
+    rank's train batches are its own blocks (``host_local_slice`` rows of
+    each global batch, as JAX's multi-host Trainer takes them; a scan group
+    stacks blocks, (k, b, ...)), the test batch is the whole one on every
+    rank (each rank evaluates it, as JAX's multi-process eval does), every
+    rank or none has a checkpoint manager, and the primary alone prints and
+    logs. ``multihost`` is true above one rank; at a world size of 1 the
+    same code path runs with trivial collectives.
   * **Dropout.** Each step's spatial-dropout centre is drawn from a CPU
     generator seeded from (``seed``, ``state.step``), as JAX folds
     ``state.step`` into a constant key, so a resumed run draws the masks an
@@ -27,6 +33,10 @@ Where the port differs from the JAX Trainer:
   * **No sync per step.** Metrics stay 0-dim tensors on the device during
     the epoch and are copied to the host once, at its end, as JAX pulls
     them once.
+
+Preemption keeps the JAX cadence logic (``_preempt_check``): under a group
+the ranks agree by an all-reduce (MAX) at a fixed dispatch cadence, so every
+rank enters the checkpoint save at the same step.
 
 Batches: dicts of X, Y, subject_idxs (and scale_stats for the precomputed
 collate), as numpy arrays or tensors. Host arrays go to the card from
@@ -48,6 +58,8 @@ import torch
 
 from speech_decoding_tpu_torch.data.native_loader import Prefetcher
 from speech_decoding_tpu_torch.models.brain_encoder import spatial_dropout_mask
+from speech_decoding_tpu_torch.parallel.collectives import all_reduce_int, assert_same_on_ranks
+from speech_decoding_tpu_torch.parallel.mesh import current_group, put_batch
 from speech_decoding_tpu_torch.training.checkpoint import CheckpointManager
 from speech_decoding_tpu_torch.training.state import create_train_state
 from speech_decoding_tpu_torch.training.steps import (
@@ -79,15 +91,6 @@ def make_wandb_logger(args):
     return wandb
 
 
-MULTI_PROCESS_NOT_PORTED = ("multi-process training is not ported yet: the port has no mesh, "
-                            "no synchronized BatchNorm and no multi-host batch placement")
-
-
-def _world_size() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
 class Trainer:
     """Drives train/eval epochs for either dataset family.
 
@@ -95,28 +98,33 @@ class Trainer:
     the single full-test-set batch [ref: train.py:95-99]. ``encoder`` is
     used as given: the caller seeds its initialization. ``sample_batch`` is
     the JAX signature's initialization batch and is not read. The state
-    lives on ``device`` (default ``cuda``; raises without a GPU unless
-    ``device="cpu"``)."""
+    lives on ``device`` (default ``cuda``, or ``cuda:LOCAL_RANK`` under a
+    process group; raises without a GPU unless ``device="cpu"``). Under a
+    process group every rank builds ``encoder`` from the same seed (checked)
+    and passes its own blocks of the train batches."""
 
     def __init__(self, encoder, args, sample_batch: Optional[Dict] = None, accumulate_steps: int = 1,
                  collate: Optional[Dict] = None, logger=None, checkpoints: Optional[CheckpointManager] = None,
                  device=None):
-        if _world_size() > 1:
-            raise NotImplementedError(MULTI_PROCESS_NOT_PORTED)
         self.args = args
         self.encoder = encoder
+        self.group = group = current_group(device)
+        self.multihost = group is not None and group.world > 1
+        self.is_primary = group is None or group.is_primary
         self.logger = logger or NoopLogger()
         self.checkpoints = checkpoints
+        if group is not None and all_reduce_int(checkpoints is not None, group) not in (0, group.world):
+            raise RuntimeError("checkpointing must be symmetric: every rank has a CheckpointManager on one "
+                               "shared directory, or none has")
         self.legacy_last_batch_only = bool(args.select("tpu.brennan_legacy_accumulation", False))
         self.seed = int(args.get("seed", 0))
         self.state = create_train_state(encoder, init_temperature=float(args.init_temperature), lr=float(args.lr),
-                                        accumulate_steps=accumulate_steps, device=device)
+                                        accumulate_steps=accumulate_steps, device=device, group=group)
         self.device = self.state.device
-        self.multihost = False
         fused = bool(args.select("tpu.fused_train_blocks", False))
-        self.train_step = make_train_step(args.reduction, collate, fused_blocks=fused)
+        self.train_step = make_train_step(args.reduction, collate, fused_blocks=fused, group=group)
         self.scan_steps = int(args.select("tpu.scan_steps", 1))
-        self.train_step_scan = (make_train_step_scan(args.reduction, collate, fused_blocks=fused)
+        self.train_step_scan = (make_train_step_scan(args.reduction, collate, fused_blocks=fused, group=group)
                                 if self.scan_steps > 1 else None)
         self.eval_step = make_eval_step(args.reduction, collate)
         # large test sets evaluate in fixed-size forward chunks (bounded
@@ -124,9 +132,13 @@ class Trainer:
         self.eval_chunk_size = int(args.select("tpu.eval_chunk_size", 1024))
         self._chunked_eval = None
         self._collate = collate
-        self.forward_step = make_train_forward_step(args.reduction, collate) if self.legacy_last_batch_only else None
+        self.forward_step = (make_train_forward_step(args.reduction, collate, group=group)
+                             if self.legacy_last_batch_only else None)
         self.start_epoch = 0
         if self.checkpoints and args.select("checkpoint.resume", True):
+            if group is not None:
+                assert_same_on_ranks(str(self.checkpoints.latest_epoch()).encode(), group,
+                                     "the latest checkpoint epoch (is the checkpoint directory shared?)")
             if self.checkpoints.latest_epoch() is not None:
                 self.state, epoch = self.checkpoints.restore(self.state)
                 self.start_epoch = epoch + 1
@@ -172,12 +184,8 @@ class Trainer:
         if self.multihost:
             if not sync and self._dispatch_seq % self._preempt_sync_every:
                 return False
-            dist = torch.distributed
-            if dist.is_available() and dist.is_initialized():
-                dev = self.device if dist.get_backend() == "nccl" else torch.device("cpu")
-                t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
-                dist.all_reduce(t, op=dist.ReduceOp.MAX)
-                flag = bool(t.item())
+            if self.group is not None:
+                flag = bool(all_reduce_int(flag, self.group, torch.distributed.ReduceOp.MAX))
         if flag:
             self.preempted = True
         return flag
@@ -185,18 +193,8 @@ class Trainer:
     # -- batches ------------------------------------------------------------------
 
     def _put(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k, v in batch.items():
-            t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
-            if k == "subject_idxs":
-                out[k] = t.to(torch.int32) if t.device.type == "cpu" else t
-            elif t.device == self.device:
-                out[k] = t
-            elif self.device.type == "cuda" and t.device.type == "cpu":
-                out[k] = t.pin_memory().to(self.device, non_blocking=True)
-            else:
-                out[k] = t.to(self.device)
-        return out
+        """The batch (under a group, the rank's block) on the state's device."""
+        return put_batch(batch, self.device)
 
     def _grouped(self, it):
         """Groups of ``scan_steps`` batches stacked on a leading axis (host
@@ -269,6 +267,8 @@ class Trainer:
         rows = torch.stack([torch.cat([m[k].float().reshape(-1) for m in train_metrics]) for k in keys]).cpu()
         pulled = [{k: float(v) for k, v in zip(keys, col)} for col in rows.T.tolist()]
         train_time = time.perf_counter() - t0
+        if self.group is not None:
+            segments *= self.group.world  # local rows -> global rows
 
         out: Dict[str, float] = {
             "epoch": epoch,
@@ -298,25 +298,27 @@ class Trainer:
             out.update(test_loss=ev["loss"], testTop1acc=ev["top1"], testTop10acc=ev["top10"])
         t_save = time.perf_counter()
 
-        cprint(
-            f"Ep {epoch}/{self.args.epochs} | "
-            f"train l: {out['train_loss']:.3f} | "
-            f"test l: {out.get('test_loss', float('nan')):.3f} | "
-            f"trainTop10acc: {out['trainTop10acc']:.3f} | "
-            f"testTop10acc: {out.get('testTop10acc', float('nan')):.3f} | "
-            f"temp: {out['temp']:.3f} | "
-            f"{out['train_segments_per_sec']:.1f} seg/s",
-            "white",
-        )
-        self.logger.log(out)
+        if self.is_primary:
+            cprint(
+                f"Ep {epoch}/{self.args.epochs} | "
+                f"train l: {out['train_loss']:.3f} | "
+                f"test l: {out.get('test_loss', float('nan')):.3f} | "
+                f"trainTop10acc: {out['trainTop10acc']:.3f} | "
+                f"testTop10acc: {out.get('testTop10acc', float('nan')):.3f} | "
+                f"temp: {out['temp']:.3f} | "
+                f"{out['train_segments_per_sec']:.1f} seg/s",
+                "white",
+            )
+            self.logger.log(out)
         self.history.append(out)
         if self.checkpoints:
             # a preempted epoch force-saves mid-epoch state regardless of the
-            # every_epochs cadence — this is the whole point of the guard
-            self.checkpoints.save(epoch, self.state, extra=out, force=self.preempted)
+            # every_epochs cadence — this is the whole point of the guard;
+            # under a group every rank enters, the primary writes
+            self.checkpoints.save(epoch, self.state, extra=out, force=self.preempted, group=self.group)
         self.last_epoch_seconds = {"train": train_time, "eval": t_save - t_eval,
                                    "checkpoint": time.perf_counter() - t_save}
-        if self.preempted:
+        if self.preempted and self.is_primary:
             cprint(
                 f"Preemption requested — epoch {epoch} stopped after "
                 f"{len(train_metrics)} dispatch(es); state "

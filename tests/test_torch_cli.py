@@ -292,8 +292,8 @@ def test_preemption_drill_through_the_cli(tmp_path, gw_cache):
 def test_main_argv_parsing(tmp_path, monkeypatch):
     """``[config.yaml] key=value ...``: the file first, overrides on top,
     root_dir defaulting to the repository root (not the package's
-    directory); main hands the config to run; multihost and an unknown
-    dataset raise."""
+    directory); main hands the config to run; multihost without
+    coordinates and an unknown dataset raise."""
     seen = []
     monkeypatch.setattr(t_train, "run", lambda args, device=None: seen.append(args))
     t_train.main(["dataset=Brennan2018", "lr=1e-3", "tpu.scan_steps=4"])
@@ -307,7 +307,7 @@ def test_main_argv_parsing(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="key=value"):
         t_train.parse_argv(["epochs"])
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(RuntimeError, match="tpu.multihost=true but torch.distributed found no coordinates"):
         t_train.run(t_train.parse_argv(["tpu.multihost=true"]), device="cpu")
     with pytest.raises(ValueError, match="Unknown dataset"):
         t_train.run(t_train.parse_argv(["dataset=Other", f"root_dir={tmp_path}"]), device="cpu")

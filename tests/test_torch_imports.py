@@ -36,9 +36,10 @@ def test_port_imports_no_jax():
               "models.wav2vec2", "models.wav2vec2_safetensors", "models.wav2vec_util", "tools.bench_preproc",
               "tools.bench_wav2vec", "utils.natsort", "utils.wavio", "data.preproc_cache", "data.synthetic",
               "data.gwilliams2022", "data.device_resident", "data.brennan2018", "train", "tools.evaluate",
-              "tools.import_torch_checkpoint", "examples", "examples.synthetic_demo"):
+              "tools.import_torch_checkpoint", "examples", "examples.synthetic_demo", "parallel",
+              "parallel.mesh", "parallel.collectives", "parallel.clip_sharded", "parallel.multihost"):
         assert f"speech_decoding_tpu_torch.{m}" in mods, m
-    assert len(mods) >= 55
+    assert len(mods) >= 60
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"

@@ -24,7 +24,6 @@ from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder  # noqa:
 from speech_decoding_tpu_torch.training import (  # noqa: E402
     CheckpointManager, PreemptionGuard, Trainer, create_train_state, make_train_step,
 )
-from speech_decoding_tpu_torch.training import trainer as trainer_module  # noqa: E402
 from speech_decoding_tpu_torch.training.state import MultiSteps  # noqa: E402
 from speech_decoding_tpu_torch.utils.reproducibility import seed_everything  # noqa: E402
 
@@ -165,17 +164,16 @@ def test_trainer_dropout_masks_follow_the_step():
     assert len(masks) > 1 and all(0 < sum(m) < C for m in masks)
 
 
-def test_trainer_batches_and_refusals(monkeypatch):
+def test_trainer_batches_and_refusals():
     t = Trainer(_encoder(), _cfg(), device="cpu")
     X = torch.zeros(2, 3)
     put = t._put({"X": X, "Y": np.ones((2, 4), np.float32), "subject_idxs": np.array([1, 0], np.int64)})
     assert put["X"] is X  # already on the state's device: untouched
     assert put["Y"].dtype == torch.float32 and put["subject_idxs"].dtype == torch.int32
-    monkeypatch.setattr(trainer_module, "_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        Trainer(_encoder(), _cfg(), device="cpu")
+    # no process group: one rank of its own, the primary (the data-parallel
+    # Trainer is tests/test_torch_multihost.py's)
+    assert t.group is None and not t.multihost and t.is_primary
     if not torch.cuda.is_available():
-        monkeypatch.undo()
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(_encoder(), _cfg())
 
