@@ -179,6 +179,42 @@ What it does, in order (one JSON object per line on stdout):
      through the eval path from the same checkpoint;
   13e. xlsr-53's bf16 ``last4_mean`` on 16 x 1 s by CUDA events beside
      its kernels' device time (``torch.profiler``);
+  15. data parallelism in spawned ranks (``parallel.multihost.spawn_ranks``):
+     one rank over NCCL at world size 1 (the flagship module and fused group
+     steps beside the one-process step in the same rank, f32 B=8 against one
+     process, one collective's cost) and two gloo ranks both on cuda:0 (f32
+     global B=16 against one process, 3 bf16 steps with the state compared
+     across the ranks after each, a Trainer epoch with checkpoint and resume
+     against a one-process epoch);
+  16. remat (``tpu.remat``), in a fresh NCCL rank at world size 1: the
+     flagship bf16 step with and without remat on the module convs and on
+     ``pallas_taps`` at B=64 and B=256: ms a step by CUDA events and host
+     clock, device busy time (``torch.profiler``, taken last), the memory
+     resident before the steps and the peak during them, launches a step
+     (K1 2, K2 15; K5 30 plain, 45 under remat); one more B=256 remat step
+     on each conv_impl in which every K1, K2 and K5 launch is held against
+     its plain version on the inputs the step gave it; one f32 B=8 remat step
+     against the plain step on phase 8's bounds, in one process, as an NCCL
+     group step, and as a gloo group step of global B=16 on two ranks, with
+     the collectives each step made (equal with and without remat); the
+     bf16 group step with and without remat timed, with its collectives;
+  17. the row-sharded bank (``SpeechDecoder.set_bank(..., group=)``): a
+     flagship encoder and a host bank of 8,192 candidates (F·T = 368,640;
+     12.1 GB f32, 3.0 GB int8, drawn on the card a chunk at a time from a
+     seed) over NCCL at world size 1, and one of 512 candidates over two
+     gloo ranks (they check the merge, not capacity), f32 then int8, a B=64
+     decode (k=10) against the one-process decoder on the same bank (scores within
+     1e-5 / 1e-6, ids equal outside near-ties, every rank's answer equal),
+     each rank's resident bank bytes, peak memory above what was allocated
+     before (during ``set_bank`` and through the decodes) and decode ms; the
+     int8 similarity on 1,024 rows against the same products summed in f32;
+     launches K1 1 and K4 5 a decode;
+  18. sharded preprocessing (``parallel.preproc_sharded``): one recording
+     (208, 396,000) f32 at 1000 Hz, band 1-60 Hz, to 120 Hz: the
+     time-sharded band-pass (its halo by one all-gather), the channel-sharded resample and band-pass +
+     resample chain, over NCCL at world size 1 and over two gloo ranks,
+     each against the one-process function on the card at JAX's tolerances,
+     with ms and MEG-s/s; no kernel launched;
   14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, each with its
      launches by path and device ms; K7 with its body, its bitwise partner
      and its tap3 route), the card line again, and last ``{"ok": true,
@@ -786,12 +822,13 @@ def dp_args(dtype: str, overrides=()):
     return scale_run.flagship_args(1, [f"tpu.compute_dtype={dtype}", "tpu.scan_steps=1", *overrides])
 
 
-def dp_state(dtype: str, device, group=None, lr: float = 3e-4):
-    """The flagship train state from DP_SEED's weights."""
+def dp_state(dtype: str, device, group=None, lr: float = 3e-4, overrides=()):
+    """The flagship train state from DP_SEED's weights (``overrides``: config
+    keys such as ``tpu.remat=true``, which leave the weights as they are)."""
     from speech_decoding_tpu_torch.tools import scale_run
     from speech_decoding_tpu_torch.training import create_train_state
 
-    enc = scale_run.make_encoder(dp_args(dtype), scale_run.FLAGSHIP, DP_SEED)
+    enc = scale_run.make_encoder(dp_args(dtype, overrides), scale_run.FLAGSHIP, DP_SEED)
     return create_train_state(enc, lr=lr, device=device, group=group)
 
 
@@ -1156,6 +1193,529 @@ def data_parallel_phase(step_ms: dict, expect) -> dict:
              gloo_spawn_seconds=gloo_s)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+    return paths
+
+
+# -- 16-18. the memory-scaling paths: remat, the row-sharded bank, sharded preprocessing ---------
+# Each runs in spawned ranks, as phase 15 does: one over NCCL at world size 1
+# (which also takes the one-process references and the timings, in a process
+# no profiler trace has slowed yet) and two over gloo, both on cuda:0
+
+MS_REMAT_BATCHES = {64: 5, 256: 3}  # batch -> timed steps (after 2 warm-up steps)
+MS_BANK_ROWS, MS_BANK_CHUNK = 8192, 512  # 8,192 flagship candidates: 12.1 GB f32, 3.0 GB int8
+MS_GLOO_BANK_ROWS = 512  # the two gloo ranks check the merge, not capacity
+MS_RECORDING = (208, 396_000)  # one Gwilliams recording at 1000 Hz [ref: gwilliams2022.py:249]
+MS_SFREQ, MS_BAND, MS_RATE = 1000.0, (1.0, 60.0), 120.0  # configs/config.yaml:47-49
+
+
+def ms_remat_overrides(impl: str, remat: bool):
+    return [f"tpu.conv_impl={impl}", f"tpu.remat={str(remat).lower()}"]
+
+
+def ms_remat_vs_plain(device, group=None, n: int = 8) -> dict:
+    """One f32 step with remat against the same step without it (the group
+    step on the rank's block under a group), from the same weights, batch
+    and mask, on phase 8's bounds: loss rtol 1e-4, temperature 1e-6, each
+    gradient 1e-3 of its largest entry + 1e-4 of the model's largest, BN
+    statistics atol 1e-5 + rtol 1e-4; with the collectives each step made."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel import shard_batch
+    from speech_decoding_tpu_torch.parallel.collectives import calls
+    from speech_decoding_tpu_torch.parallel.mesh import put_batch
+    from speech_decoding_tpu_torch.training import make_train_step
+
+    host = dp_batch(n, 1)
+    runs = {}
+    for remat in (False, True):
+        st = dp_state("float32", device, group, overrides=ms_remat_overrides("gemm_pdw", remat))
+        before = dict(calls)
+        st, m = make_train_step(collate=FLAGSHIP_COLLATE, group=group)(
+            st, put_batch(host, device) if group is None else shard_batch(host, group), drop_mask=dp_mask(0))
+        torch.cuda.synchronize()
+        grads = {n_: p.grad for n_, p in st.encoder.named_parameters()}
+        grads["clip.temp"] = st.clip.temp.grad
+        runs[remat] = (m, grads, {n_: b for n_, b in st.encoder.named_buffers() if n_.endswith(("mean", "var"))},
+                       {k: v - before.get(k, 0) for k, v in calls.items() if v - before.get(k, 0)})
+    (m0, g0, b0, c0), (m1, g1, b1, c1) = runs[False], runs[True]
+    gmax = max(float(w.abs().max()) for w in g0.values())
+    grad = max(float((g1[k] - w).abs().max()) / (1e-3 * float(w.abs().max()) + 1e-4 * gmax) for k, w in g0.items())
+    stats = max(float(((b1[k] - w).abs() / (1e-5 + 1e-4 * w.abs())).max()) for k, w in b0.items())
+    bitwise = all(torch.equal(g1[k], w) for k, w in g0.items()) and all(torch.equal(b1[k], w) for k, w in b0.items())
+    return {"loss_err_over_bound": abs(float(m1["loss"]) - float(m0["loss"])) / (1e-4 * abs(float(m0["loss"]))),
+            "temp_err_over_bound": abs(float(m1["temp"]) - float(m0["temp"])) / (1e-6 * abs(float(m0["temp"]))),
+            "gradient_err_over_bound": grad, "bn_stats_err_over_bound": stats, "bitwise_equal": bitwise,
+            "collectives_plain": c0, "collectives_remat": c1, "batch": n}
+
+
+def ms_step_kernel_checks(step, state, batch, first_step: int):
+    """One more step in which every launch of K1, K2 and K5 is held against
+    its plain version on the very inputs the step gave it (activations,
+    cotangents, weights, ids), on phase 3's bf16 tolerances: |got - want| ≤
+    atol + rtol·|want| with atol a share of the plain output's largest
+    entry: K1 and its dX 1e-2 and rtol 1e-2, K2 1e-4 and 1e-4, K5 and its dx
+    1e-2 and 1e-2. Returns the new state and, by kernel and form, the
+    launches checked and the worst max(|got - want| - rtol·|want|) / atol."""
+    import torch
+
+    from speech_decoding_tpu_torch.ops import subject_conv as sc
+    from speech_decoding_tpu_torch.ops import tap_conv as tc
+
+    checks = {}
+
+    def check(form, got, want, rel):
+        g, w = got.float(), want.float()
+        atol = rel * float(w.abs().max()) or rel
+        worst = float(((g - w).abs() - rel * w.abs()).max()) / atol
+        if not bool(torch.isfinite(g).all()):
+            worst = float("inf")
+        c = checks.setdefault(form, {"launches": 0, "err_over_bound": 0.0, "shapes": set()})
+        c["launches"] += 1
+        c["err_over_bound"] = max(c["err_over_bound"], worst)
+        c["shapes"].add(tuple(got.shape))
+        return got
+
+    k1, k2, k5 = sc._launch, tc._launch, tc._launch_conv
+
+    def k1_checked(x, w, sidx, transposed, host_ids=0):
+        y = k1(x, w, sidx, transposed, host_ids)  # fills sidx from the host ids first
+        return check("K1 dX" if transposed else "K1", y,
+                     sc.subject_matmul_plain(x, w.transpose(1, 2) if transposed else w, sidx), 1e-2)
+
+    def k2_checked(x, g, d, padded=None):
+        return check("K2", k2(x, g, d, padded), tc.tap_conv_dw_plain(x, g, d), 1e-4)
+
+    def k5_checked(x, w, d, transposed):
+        return check("K5 dx" if transposed else "K5", k5(x, w, d, transposed),
+                     tc.tap_conv_plain(x, tc.flip_taps(w) if transposed else w, d), 1e-2)
+
+    sc._launch, tc._launch, tc._launch_conv = k1_checked, k2_checked, k5_checked
+    try:
+        state, _ = step(state, batch, drop_mask=dp_mask(first_step))
+        torch.cuda.synchronize()
+    finally:
+        sc._launch, tc._launch, tc._launch_conv = k1, k2, k5
+    return state, {k: {**v, "shapes": sorted(map(list, v["shapes"]))} for k, v in checks.items()}
+
+
+def ms_remat_timings(device) -> dict:
+    """The flagship step (bf16, one process) with and without remat, on the
+    module convs and on pallas_taps, at B=64 and B=256: ms a step by CUDA
+    events and host clock, launches (counters set to 0 just before the timed
+    steps and read just after), the memory resident before the steps and the
+    peak during them. At the largest batch, one more remat step on each
+    conv_impl holds every K1, K2 and K5 launch against its plain version
+    (``ms_step_kernel_checks``)."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel.mesh import put_batch
+    from speech_decoding_tpu_torch.training import make_train_step
+
+    out, kept = {}, {}
+    for b, n in MS_REMAT_BATCHES.items():
+        batch = put_batch(dp_batch(b, 20 + b), device)
+        for impl in ("gemm_pdw", "pallas_taps"):
+            for remat in (False, True):
+                st = dp_state("bfloat16", device, overrides=ms_remat_overrides(impl, remat))
+                step = make_train_step(collate=FLAGSHIP_COLLATE)
+                for i in range(2):
+                    st, _ = step(st, batch, drop_mask=dp_mask(i))
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                r = dp_timed_steps(st, step, batch, n, 2)
+                r.update(steps=n, resident_gb=resident / 1e9, peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+                if remat and b == max(MS_REMAT_BATCHES):
+                    st, r["kernel_checks"] = ms_step_kernel_checks(step, st, batch, 2 + n)
+                key = f"{impl} B={b}" + (" remat" if remat else "")
+                out[key], kept[key] = r, (step, st, batch)
+    return out, kept
+
+
+def ms_bank_host(device, rows: int) -> np.ndarray:
+    """The (rows, F, T) f32 bank on the host, the same bytes in every process:
+    drawn on ``device`` from DP_SEED a chunk of rows at a time, so no
+    process holds it whole on the card."""
+    import torch
+
+    from speech_decoding_tpu_torch.tools import scale_run
+
+    d = scale_run.FLAGSHIP
+    bank = np.empty((rows, d["F"], d["T"]), np.float32)
+    g = torch.Generator(device=device).manual_seed(DP_SEED)
+    for i in range(0, rows, MS_BANK_CHUNK):
+        n = min(MS_BANK_CHUNK, rows - i)
+        torch.from_numpy(bank[i : i + n]).copy_(torch.randn(n, d["F"], d["T"], generator=g, device=device))
+    return bank
+
+
+def ms_decoder(device):
+    from speech_decoding_tpu_torch.inference import SpeechDecoder
+    from speech_decoding_tpu_torch.tools import scale_run
+
+    return SpeechDecoder(scale_run.make_encoder(dp_args("bfloat16"), scale_run.FLAGSHIP, DP_SEED), device=device)
+
+
+def ms_int8_sim_check(zq, bank_q) -> dict:
+    """The int8 decode's similarity (bf16 upcasts of a chunk of bank rows at
+    a time, f32 accumulation) against the same integer products summed in
+    f32 from f32 copies, on up to 1,024 of the rank's rows (several
+    chunks): |got - want| ≤ 1e-5 · Σ|terms| elementwise, the order of the
+    f32 sums over D = 368,640."""
+    from speech_decoding_tpu_torch.inference import _int8_sim
+
+    rows = bank_q[:1024]
+    got = _int8_sim(zq, rows)
+    want = zq.float() @ rows.float().T
+    terms = zq.float().abs() @ rows.float().abs().T
+    return {"rows": int(rows.shape[0]), "max_abs_err": float((got - want).abs().max()),
+            "err_over_bound": float(((got - want).abs() / (1e-5 * terms).clamp_min(1e-30)).max())}
+
+
+def ms_bank(group, bank: np.ndarray) -> dict:
+    """A B=64 decode (k=10) against the bank, f32 then int8: on the whole
+    bank in one process first (the reference), then with the rows sharded
+    over ``group``; launches of the group decodes (counters set to 0 just
+    before and read just after), the rank's resident bank bytes, its peak
+    memory above what was allocated before ``set_bank`` (during
+    ``set_bank``, and through the decodes too) and the group decode's ms on
+    the host clock."""
+    import torch
+
+    dec = ms_decoder(group.device)
+    q = dp_batch(64, 30)
+    X, sidx = q["X"], q["subject_idxs"]
+    out = {"one_process": {}, "group": {}, "launches": None}
+    for dtype in ("float32", "int8"):
+        dec.set_bank(bank, dtype)
+        out["one_process"][dtype] = dec.decode(X, sidx, k=10)
+    answers = {}
+    for dtype in ("float32", "int8"):
+        dec._bank_norm = dec._bank_q = dec._bank_scale = None  # the last bank: the peaks below are this one's
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(group.device)
+        torch.cuda.reset_peak_memory_stats(group.device)
+        t = time.perf_counter()
+        dec.set_bank(bank, dtype, group=group)
+        torch.cuda.synchronize()
+        set_s = time.perf_counter() - t
+        set_peak = torch.cuda.max_memory_allocated(group.device) - base
+        held = [dec._bank_norm] if dtype == "float32" else [dec._bank_q, dec._bank_scale]
+        rows, resident = int(held[0].shape[0]), sum(h.numel() * h.element_size() for h in held)
+        del held
+        dec.decode(X, sidx, k=10)  # warm-up
+        _reset_counts()
+        answers[dtype] = dec.decode(X, sidx, k=10)
+        launches = _read_counts()
+        out["launches"] = launches if out["launches"] is None else {k: v + launches[k] for k, v in out["launches"].items()}
+        ms = []
+        for _ in range(10):
+            t = time.perf_counter()
+            dec.decode(X, sidx, k=10)  # returns host arrays: waits for the card
+            ms.append((time.perf_counter() - t) * 1e3)
+        out["group"][dtype] = {"scores": answers[dtype][0], "ids": answers[dtype][1],
+                               "rows": rows, "bank_size": dec.bank_size, "resident_bank_gb": resident / 1e9,
+                               "set_bank_peak_gb": set_peak / 1e9,
+                               "peak_gb": (torch.cuda.max_memory_allocated(group.device) - base) / 1e9,
+                               "set_bank_s": set_s, "decode_ms_host_clock": ms}
+    # after the counted decode and the peaks: the encode is the decode's own
+    z = dec.encode(X, sidx).float().reshape(len(X), -1)
+    z = z / z.norm(dim=-1, keepdim=True)
+    out["int8_sim"] = ms_int8_sim_check(torch.round(z / (z.abs().amax(-1, keepdim=True) / 127)).to(torch.int8),
+                                        dec._bank_q)
+    return out
+
+
+def ms_preproc(group) -> dict:
+    """One recording (208, 396,000) f32 at 1000 Hz, drawn on the card from
+    DP_SEED: the time-sharded band-pass (1-60 Hz) of the rank's time block
+    and the channel-sharded resample and band-pass + resample chain (to 120
+    Hz) of its channel block, each against the one-process function on the
+    card at JAX's tolerances (band-pass and chain rtol 2e-4, atol 2e-5;
+    resample rtol 1e-5, atol 1e-6), with ms by CUDA events (5 calls after a
+    warm-up) and the launches of the sharded calls (none expected)."""
+    import torch
+
+    from speech_decoding_tpu_torch.ops.fir import bandpass_filter
+    from speech_decoding_tpu_torch.ops.resample import fft_resample
+    from speech_decoding_tpu_torch.parallel.preproc_sharded import (
+        bandpass_filter_sharded, bandpass_resample_sharded, fft_resample_sharded,
+    )
+
+    C_, T_ = MS_RECORDING
+    g = torch.Generator(device=group.device).manual_seed(DP_SEED)
+    x = torch.randn(C_, T_, generator=g, device=group.device)
+    tb, cb = group.block(T_), group.block(C_)
+    lo, hi = MS_BAND
+    calls_ = {
+        "bandpass": (lambda: bandpass_filter_sharded(x[:, tb], MS_SFREQ, lo, hi, group),
+                     lambda: bandpass_filter(x, MS_SFREQ, lo, hi)[:, tb], 2e-4, 2e-5),
+        "resample": (lambda: fft_resample_sharded(x[cb], MS_RATE, MS_SFREQ, group),
+                     lambda: fft_resample(x, up=MS_RATE, down=MS_SFREQ)[cb], 1e-5, 1e-6),
+        "chain": (lambda: bandpass_resample_sharded(x[cb], MS_SFREQ, lo, hi, MS_RATE, group),
+                  lambda: fft_resample(bandpass_filter(x, MS_SFREQ, lo, hi), up=MS_RATE, down=MS_SFREQ)[cb],
+                  2e-4, 2e-5),
+    }
+    out = {"recording": list(MS_RECORDING), "recording_s": T_ / MS_SFREQ}
+    for name, (sharded, one, rtol, atol) in calls_.items():
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = sharded()
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        want = one()
+        err = (got - want).abs()
+        out[name] = {"shape": list(got.shape), "max_abs_err": float(err.max()),
+                     "err_over_bound": float((err / (atol + rtol * want.abs())).max()), "rtol": rtol, "atol": atol,
+                     "finite": bool(torch.isfinite(got).all()), "launches": launches,
+                     "ms_cuda_events": time_ms(sharded, reps=5, warmup=1),
+                     "one_process_ms_cuda_events": time_ms(one, reps=5, warmup=1)}
+    return out
+
+
+def ms_rank_nccl() -> dict:
+    """Phases 16-18 on one rank over NCCL (world size 1): the remat timings
+    and checks, the group step with remat, the bank and the recording."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel import data_group
+    from speech_decoding_tpu_torch.parallel.collectives import calls
+    from speech_decoding_tpu_torch.parallel.mesh import put_batch
+    from speech_decoding_tpu_torch.training import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = data_group()
+    out = {"world": group.world, "device": str(group.device)}
+    t = time.perf_counter()
+    out["remat"], kept = ms_remat_timings(group.device)
+    out["remat_f32_b8"] = ms_remat_vs_plain(group.device)
+    out["remat_f32_b8_group"] = ms_remat_vs_plain(group.device, group)
+    # the bf16 group step with and without remat: ms, launches, collectives a step
+    batch = put_batch(dp_batch(64, 2), group.device)
+    out["group"] = {}
+    for remat in (False, True):
+        st = dp_state("bfloat16", group.device, group, overrides=ms_remat_overrides("gemm_pdw", remat))
+        step = make_train_step(collate=FLAGSHIP_COLLATE, group=group)
+        for i in range(2):
+            st, _ = step(st, batch, drop_mask=dp_mask(i))
+        before = dict(calls)
+        r = dp_timed_steps(st, step, batch, 5, 2)
+        r["collectives_per_step"] = {k: (v - before.get(k, 0)) / 5 for k, v in calls.items() if v - before.get(k, 0)}
+        out["group"]["remat" if remat else "plain"] = r
+    t_remat = time.perf_counter()
+    bank = ms_bank_host(group.device, MS_BANK_ROWS)
+    out["bank"] = ms_bank(group, bank)
+    del bank
+    torch.cuda.empty_cache()
+    t_bank = time.perf_counter()
+    out["preproc"] = ms_preproc(group)
+    t_preproc = time.perf_counter()
+    # device times last: a profiler trace slows every later launch on the host
+    # (one step at B=256: its trace alone holds as many kernels as three at B=64)
+    for key, (step, st, b) in kept.items():
+        out["remat"][key]["device_busy_ms_per_step"] = dp_device_busy_ms(step, st, b, 3 if "B=64" in key else 1)
+    out["seconds"] = {"remat": t_remat - t, "bank": t_bank - t_remat, "preproc": t_preproc - t_bank,
+                      "profiles": time.perf_counter() - t_preproc}
+    return out
+
+
+def ms_rank_gloo() -> dict:
+    """Phases 16-18 on one of two gloo ranks, both on cuda:0: the f32 remat
+    group step against the plain group step, the rank's block of a
+    512-candidate bank, and its blocks of the recording."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel import data_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = data_group("cuda:0")
+    t = time.perf_counter()
+    out = {"rank": group.rank, "world": group.world, "device": str(group.device),
+           "remat_f32_b16_group": ms_remat_vs_plain(group.device, group, 16)}
+    t_remat = time.perf_counter()
+    out["bank"] = ms_bank(group, ms_bank_host(group.device, MS_GLOO_BANK_ROWS))
+    t_bank = time.perf_counter()
+    out["preproc"] = ms_preproc(group)
+    out["seconds"] = {"remat": t_remat - t, "bank": t_bank - t_remat, "preproc": time.perf_counter() - t_bank}
+    return out
+
+
+def ms_ids_agree(ids, ref_ids, ref_scores, band: float) -> int:
+    """Raise unless ``ids`` equal ``ref_ids`` wherever the reference's score
+    is more than ``band`` from its neighbours' (a near-tie may swap two
+    candidates); returns the positions that differ."""
+    differ = ids != ref_ids
+    gap = np.full(ref_scores.shape, np.inf, np.float32)
+    step = np.abs(np.diff(ref_scores, axis=1))
+    gap[:, 1:], gap[:, :-1] = step, np.minimum(gap[:, :-1], step)
+    if np.any(differ & (gap > band)):
+        raise AssertionError(f"ids differ from the one-process decoder outside a near-tie: {np.argwhere(differ)[:5]}")
+    return int(differ.sum())
+
+
+def memory_scaling_phase(expect) -> dict:
+    """Phases 16-18 in the parent: spawn the ranks, check what they return
+    and print the lines; returns the launch counts of each path (the gloo
+    paths summed over the two ranks)."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel.multihost import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    per_step = {"gemm_pdw": (expect(subject_matmul=2, tap_conv_dw=15), expect(subject_matmul=2, tap_conv_dw=15)),
+                "pallas_taps": (expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30),
+                                expect(subject_matmul=2, tap_conv_dw=15, tap_conv=45))}
+    decodes = expect(subject_matmul=2, conv_block_fused=10)  # one checked B=64 decode a store dtype
+    paths = {}
+
+    def times(counts, n):
+        return {k: v * n for k, v in counts.items()}
+
+    def remat_ok(label, c):
+        bad = {k: v for k, v in c.items() if k.endswith("over_bound") and not v <= 1.0}
+        if bad or c["collectives_plain"] != c["collectives_remat"]:
+            raise AssertionError(f"{label}: the remat step differs from the plain step: {c}")
+        emit(check=label, **c, bounds="phase 8's: loss rtol 1e-4, temperature 1e-6, gradients 1e-3 of the tensor's "
+                                      "largest + 1e-4 of the model's, BN statistics atol 1e-5 + rtol 1e-4")
+
+    t = time.perf_counter()
+    a = spawn_ranks(ms_rank_nccl, 1, backend="nccl", timeout=900)[0]
+    nccl_s = time.perf_counter() - t
+    t = time.perf_counter()
+    b = spawn_ranks(ms_rank_gloo, 2, backend="gloo", timeout=900)
+    gloo_s = time.perf_counter() - t
+    emit(timing="phases 16-18: seconds a spawn and a part", nccl_spawn_s=nccl_s, nccl_rank_parts_s=a["seconds"],
+         gloo_spawn_s=gloo_s, gloo_rank_parts_s=[r["seconds"] for r in b])
+
+    # -- 16. remat -------------------------------------------------------------------------------
+    for key, r in a["remat"].items():
+        impl, bs = key.split()[:2]
+        remat = key.endswith("remat")
+        n = r["steps"]
+        if r["launches"] != times(per_step[impl][remat], n) or not np.all(np.isfinite(r["losses"])):
+            raise AssertionError(f"remat {key}: launches {r['launches']}, losses {r['losses']}")
+        name = ("remat_" if remat else "") + ("taps_" if impl == "pallas_taps" else "") + f"train_b{bs[2:]}"
+        paths[name] = r["launches"]
+        emit(phase="remat", path=name, config="flagship: C=208 T=360 D1=270 D2=320 F=1024 K=32 S=27, bf16, "
+             f"channels-last, precomputed collate stats, conv_impl={impl}, {bs}, tpu.remat={str(remat).lower()}",
+             steps=n, ms_per_step_cuda_events=r["ms_per_step_cuda_events"],
+             ms_per_step_host_clock=r["ms_per_step_host_clock"], device_busy_ms_per_step=r["device_busy_ms_per_step"],
+             resident_gb=r["resident_gb"], peak_gb=r["peak_gb"], activation_peak_gb=r["peak_gb"] - r["resident_gb"],
+             launches_per_step={k: v / n for k, v in r["launches"].items() if v}, losses=r["losses"])
+    saved = {}
+    for impl in ("gemm_pdw", "pallas_taps"):
+        for bs in MS_REMAT_BATCHES:
+            p_, r_ = a["remat"][f"{impl} B={bs}"], a["remat"][f"{impl} B={bs} remat"]
+            saved[f"{impl} B={bs}"] = {"peak_saved_gb": p_["peak_gb"] - r_["peak_gb"],
+                                       "ms_added_cuda_events": r_["ms_per_step_cuda_events"]
+                                       - p_["ms_per_step_cuda_events"],
+                                       "device_busy_ms_added": (r_["device_busy_ms_per_step"]
+                                                                - p_["device_busy_ms_per_step"])
+                                       if isinstance(r_["device_busy_ms_per_step"], float)
+                                       and isinstance(p_["device_busy_ms_per_step"], float) else "not measured"}
+    big = max(MS_REMAT_BATCHES)
+    for impl, forms in (("gemm_pdw", ("K1", "K1 dX", "K2")), ("pallas_taps", ("K1", "K1 dX", "K2", "K5", "K5 dx"))):
+        kc = a["remat"][f"{impl} B={big} remat"]["kernel_checks"]
+        if sorted(kc) != sorted(forms) or not all(c["err_over_bound"] <= 1.0 for c in kc.values()):
+            raise AssertionError(f"remat {impl} B={big}: the kernels against their plain versions: {kc}")
+        emit(check=f"K1, K2 and K5 on the inputs of one remat {impl} B={big} step against their plain versions",
+             by_kernel=kc, bounds="phase 3's bf16: |got - want| <= atol + rtol·|want|, atol a share of the "
+                                  "plain output's largest entry: K1, K1 dX, K5, K5 dx 1e-2 and rtol 1e-2; "
+                                  "K2 1e-4 and 1e-4")
+    emit(timing="remat: what recomputing the five ConvBlocks saves and costs a step (plain minus remat peak; "
+                "remat minus plain time)", by_config=saved)
+    if not all(v["peak_saved_gb"] > 0 for v in saved.values()):
+        raise AssertionError(f"remat did not lower the step's peak memory: {saved}")
+    remat_ok("remat f32 B=8 step vs the plain step, one process", a["remat_f32_b8"])
+    remat_ok("remat f32 B=8 group step vs the plain group step, NCCL world 1", a["remat_f32_b8_group"])
+    for r in b:
+        remat_ok(f"remat f32 global B=16 group step vs the plain group step, gloo rank {r['rank']} of 2",
+                 r["remat_f32_b16_group"])
+    g = a["group"]
+    for name, r in g.items():
+        if r["launches"] != times(per_step["gemm_pdw"][name == "remat"], 5):
+            raise AssertionError(f"remat NCCL group step ({name}): launches {r['launches']}")
+    if g["plain"]["collectives_per_step"] != g["remat"]["collectives_per_step"]:
+        raise AssertionError(f"the remat group step's collectives differ: {g}")
+    paths["dp_nccl_remat"] = g["remat"]["launches"]
+    emit(phase="remat_dp_nccl", backend="nccl", world=a["world"], config="flagship bf16 B=64, conv_impl=gemm_pdw",
+         steps=5, remat_ms_per_step_cuda_events=g["remat"]["ms_per_step_cuda_events"],
+         plain_ms_per_step_cuda_events=g["plain"]["ms_per_step_cuda_events"],
+         remat_ms_per_step_host_clock=g["remat"]["ms_per_step_host_clock"],
+         plain_ms_per_step_host_clock=g["plain"]["ms_per_step_host_clock"],
+         collectives_per_step_remat=g["remat"]["collectives_per_step"],
+         collectives_per_step_plain=g["plain"]["collectives_per_step"], launches=g["remat"]["launches"])
+
+    # -- 17. the row-sharded bank ------------------------------------------------------------------
+    for label, ranks, n_bank in (("sharded_bank_nccl", [a], MS_BANK_ROWS),
+                                 ("sharded_bank_gloo", b, MS_GLOO_BANK_ROWS)):
+        w = len(ranks)
+        for r in ranks:
+            if r["bank"]["launches"] != decodes:
+                raise AssertionError(f"{label}: launches {r['bank']['launches']}, expected {decodes}")
+            if not r["bank"]["int8_sim"]["err_over_bound"] <= 1.0:
+                raise AssertionError(f"{label}: the int8 similarity against f32 sums: {r['bank']['int8_sim']}")
+        lines = {}
+        for dtype, atol in (("float32", 1e-5), ("int8", 1e-6)):
+            got = [r["bank"]["group"][dtype] for r in ranks]
+            for x in got[1:]:
+                if not (np.array_equal(x["ids"], got[0]["ids"]) and np.array_equal(x["scores"], got[0]["scores"])):
+                    raise AssertionError(f"{label} {dtype}: the ranks' answers differ")
+            for x in got:
+                if x["rows"] != n_bank // w or x["bank_size"] != n_bank:
+                    raise AssertionError(f"{label} {dtype}: a rank holds {x['rows']} of {x['bank_size']} rows")
+            ref_scores, ref_ids = ranks[0]["bank"]["one_process"][dtype]
+            score_err = float(np.abs(got[0]["scores"] - ref_scores).max())
+            if not score_err <= atol:
+                raise AssertionError(f"{label} {dtype}: scores {score_err} from the one-process decoder's")
+            swapped = ms_ids_agree(got[0]["ids"], ref_ids, ref_scores, atol)
+            lines[dtype] = {"max_abs_score_err": score_err, "atol": atol, "near_tie_positions_swapped": swapped,
+                            "rows_per_rank": got[0]["rows"],
+                            "resident_bank_gb_per_rank": [x["resident_bank_gb"] for x in got],
+                            "set_bank_peak_gb_per_rank": [x["set_bank_peak_gb"] for x in got],
+                            "peak_gb_per_rank": [x["peak_gb"] for x in got],
+                            "set_bank_s_per_rank": [x["set_bank_s"] for x in got],
+                            "decode_ms_host_clock": [x["decode_ms_host_clock"] for x in got]}
+        paths[label] = {k: sum(r["bank"]["launches"][k] for r in ranks) for k in decodes}
+        emit(phase=label, backend="nccl" if w == 1 else "gloo", world=w, device=ranks[0]["device"],
+             config=f"flagship encoder (bf16, fused serving path); bank N={n_bank} x F·T=368,640 "
+                    f"({n_bank * 368_640 * 4 / 1e9:.2f} GB f32, {n_bank * 368_640 / 1e9:.2f} GB int8) on the "
+                    f"host, row blocks of {n_bank // w}; B=64, k=10; against one process on the same bank",
+             by_store_dtype=lines, launches_per_rank=[r["bank"]["launches"] for r in ranks],
+             int8_similarity_vs_f32_sums=[r["bank"]["int8_sim"] for r in ranks],
+             seconds_with_spawn=nccl_s if w == 1 else gloo_s,
+             note="" if w == 1 else "gloo stages its collectives through the host: the decode ms is a check, "
+                                    "not a rate")
+
+    # -- 18. sharded preprocessing ---------------------------------------------------------------------
+    for label, ranks in (("sharded_preproc_nccl", [a]), ("sharded_preproc_gloo", b)):
+        launches = dict.fromkeys(expect(), 0)
+        for r in ranks:
+            pp = r["preproc"]
+            for name in ("bandpass", "resample", "chain"):
+                c = pp[name]
+                if not (c["finite"] and c["err_over_bound"] <= 1.0) or c["launches"] != expect():
+                    raise AssertionError(f"{label} rank {r.get('rank', 0)} {name}: {c}")
+                for k, v in c["launches"].items():
+                    launches[k] += v
+        paths[label] = launches
+        rec_s = ranks[0]["preproc"]["recording_s"]
+        emit(phase=label, backend="nccl" if len(ranks) == 1 else "gloo", world=len(ranks),
+             halo="one all-gather of every rank's two edges", config=f"one recording {MS_RECORDING} f32 at {MS_SFREQ:g} Hz, band "
+             f"{MS_BAND[0]:g}-{MS_BAND[1]:g} Hz, resampled to {MS_RATE:g} Hz; band-pass time-sharded, resample "
+             "and chain channel-sharded", recording_mb=MS_RECORDING[0] * MS_RECORDING[1] * 4 / 1e6,
+             by_rank=[{name: {k: r["preproc"][name][k] for k in ("shape", "max_abs_err", "err_over_bound",
+                                                                 "ms_cuda_events", "one_process_ms_cuda_events")}
+                       for name in ("bandpass", "resample", "chain")} for r in ranks],
+             meg_s_per_s=({name: rec_s / (ranks[0]["preproc"][name]["ms_cuda_events"] / 1e3)
+                           for name in ("bandpass", "chain")} if len(ranks) == 1 else "a check, not a rate"),
+             one_process_meg_s_per_s={name: rec_s / (ranks[0]["preproc"][name]["one_process_ms_cuda_events"] / 1e3)
+                                      for name in ("bandpass", "chain")},
+             launches=launches)
     return paths
 
 
@@ -2490,11 +3050,16 @@ def main() -> int:
     # -- 15. data parallelism -------------------------------------------------------------
     dp_paths = data_parallel_phase(step_ms, expect)
 
+    # -- 16-18. remat, the row-sharded bank, sharded preprocessing ----------------------------------
+    t = time.perf_counter()
+    ms_paths = memory_scaling_phase(expect)
+    emit(phase="memory_scaling", seconds=time.perf_counter() - t)
+
     # -- 14. summary ---------------------------------------------------------
     paths = {"serve": launches, "train": train_launches, "eval": eval_launches, "fused_train": fused_launches,
              "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"], "tool": tool_launches,
              "trainer": trainer_launches, "trainer_fused": fused_trainer_launches, "preemption": preempt_launches,
-             "checkpoint_serve": serve_ck_launches, **prep_paths, **cli_paths, **dp_paths}
+             "checkpoint_serve": serve_ck_launches, **prep_paths, **cli_paths, **dp_paths, **ms_paths}
 
     def launches_of(kernel):
         return sum(p[kernel] for p in paths.values())

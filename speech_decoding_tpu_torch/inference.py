@@ -20,8 +20,13 @@ two 1x1 GELU heads. ``use_fused_blocks=False`` runs the module forward
 instead (which takes the same per-subject kernel).
 The bank lives on the device. ``SpeechDecoder.from_checkpoint`` serves a
 checkpoint of the port's ``training.CheckpointManager`` (the latest, the
-best-model one or a given epoch). A sharded bank waits for the parallel
-part of the port.
+best-model one or a given epoch).
+
+``set_bank(..., group=)`` is JAX's ``set_bank(mesh=)``: a bank larger than
+one card's memory held as row blocks, one a rank (``parallel.DataGroup``;
+one process a card). Each rank scores its block, and an all-gather of the
+(B, k) winners is merged on every rank, so every rank returns the same
+answer and each encodes the same request.
 """
 
 from __future__ import annotations
@@ -36,9 +41,13 @@ from speech_decoding_tpu_torch.models.brain_encoder import BrainEncoder
 from speech_decoding_tpu_torch.ops.conv_block import apply_fused_stack, prepare_fused_stack
 from speech_decoding_tpu_torch.ops.resample import fft_resample, sinc_resample
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
+from speech_decoding_tpu_torch.parallel.collectives import all_gather_stack
+from speech_decoding_tpu_torch.parallel.mesh import DataGroup
 from speech_decoding_tpu_torch.utils.device import resolve_device
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
+
+_BANK_CHUNK_BYTES = 1 << 28  # bank rows set_bank normalizes (f32) and an int8 decode upcasts (bf16) at a time
 
 
 def _unit_rows(Z: torch.Tensor) -> torch.Tensor:
@@ -64,12 +73,18 @@ def quantize_rows_int8(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _int8_sim(zq: torch.Tensor, bank_q: torch.Tensor) -> torch.Tensor:
     """(B, N) f32 dot products of int8-valued rows. On the card both operands
-    are upcast to bf16 (exact for int8 values) and contracted with f32
+    are upcast to bf16 (exact for int8 values), a chunk of bank rows at a
+    time so the bank is never copied whole, and contracted with f32
     accumulation; the CPU has no bf16 x bf16 -> f32 product, so it contracts
     f32 copies, which is the same arithmetic."""
-    if zq.is_cuda:
-        return torch.mm(zq.to(torch.bfloat16), bank_q.to(torch.bfloat16).T, out_dtype=torch.float32)
-    return zq.float() @ bank_q.float().T
+    if not zq.is_cuda:
+        return zq.float() @ bank_q.float().T
+    z = zq.to(torch.bfloat16)
+    sim = torch.empty((zq.shape[0], bank_q.shape[0]), dtype=torch.float32, device=zq.device)
+    step = max(1, _BANK_CHUNK_BYTES // (2 * bank_q.shape[1]))
+    for i in range(0, bank_q.shape[0], step):
+        sim[:, i : i + step] = torch.mm(z, bank_q[i : i + step].to(torch.bfloat16).T, out_dtype=torch.float32)
+    return sim
 
 
 def retrieve_topk_int8(Z: torch.Tensor, bank_q: torch.Tensor, bank_scale: torch.Tensor,
@@ -174,6 +189,9 @@ class SpeechDecoder:
         self._bank_norm: Optional[torch.Tensor] = None
         self._bank_q: Optional[torch.Tensor] = None
         self._bank_scale: Optional[torch.Tensor] = None
+        self._bank_group: Optional[DataGroup] = None
+        self._bank_rows = 0  # the whole bank's N (this rank holds a block of it under a group)
+        self._bank_offset = 0  # the global id of this rank's first row
         if bank is not None:
             self.set_bank(bank)
 
@@ -211,14 +229,21 @@ class SpeechDecoder:
 
     @property
     def bank_size(self) -> int:
-        bank = self._bank_norm if self._bank_norm is not None else self._bank_q
-        return 0 if bank is None else int(bank.shape[0])
+        """N of the whole bank (every rank's block together under a group)."""
+        return self._bank_rows
 
     @torch.inference_mode()
-    def set_bank(self, bank: ArrayLike, store_dtype: str = "float32") -> None:
+    def set_bank(self, bank: ArrayLike, store_dtype: str = "float32", group: Optional[DataGroup] = None) -> None:
         """Install the candidate speech-embedding bank, reference layout
         (N, F, T) [ref: models.py:226]; rows are L2-normalized once and kept
         on the device, f32 or per-row int8 (``store_dtype``).
+
+        ``group``: every rank passes the same whole bank and keeps only its
+        row block (``group.block(N)``; N must divide by the ranks, as JAX's
+        row sharding requires). A host bank (numpy or a CPU tensor) is
+        sliced before its block is copied to the device, so no rank holds
+        the whole bank there; normalization and quantization are per row,
+        so each block's rows are the one-process bank's.
 
         The flatten order must match ``encode``'s output layout: a
         channels-last encoder emits (B, T, F), so the bank is transposed to
@@ -239,17 +264,29 @@ class SpeechDecoder:
             )
         if store_dtype not in ("float32", "int8"):
             raise ValueError(f"store_dtype must be float32 or int8, got {store_dtype}")
+        rows = torch.as_tensor(bank)
+        blk = slice(0, None) if group is None else group.block(rows.shape[0])  # raises unless N divides by W
         self._bank_norm = self._bank_q = self._bank_scale = None
-        flat = torch.as_tensor(bank).to(self.device, torch.float32)
-        if self.encoder.channels_last_io:
-            flat = flat.transpose(-1, -2)
-        flat = flat.reshape(flat.shape[0], -1)
-        bank_norm = flat / torch.linalg.vector_norm(flat, dim=-1, keepdim=True).clamp_min(1e-8)
-        del flat
+        self._bank_group, self._bank_rows, self._bank_offset = group, int(rows.shape[0]), blk.start
+        block = rows[blk]
+        n, d = block.shape[0], block.shape[1] * block.shape[2]
+        # normalized (and quantized) a chunk of rows at a time straight into
+        # the stored bank, so the device holds little beyond the stored rows
         if store_dtype == "int8":
-            self._bank_q, self._bank_scale = quantize_rows_int8(bank_norm)
+            self._bank_q = torch.empty((n, d), dtype=torch.int8, device=self.device)
+            self._bank_scale = torch.empty((n,), dtype=torch.float32, device=self.device)
         else:
-            self._bank_norm = bank_norm
+            self._bank_norm = torch.empty((n, d), dtype=torch.float32, device=self.device)
+        step = max(1, _BANK_CHUNK_BYTES // (4 * d))
+        for i in range(0, n, step):
+            flat = block[i : i + step].to(self.device, torch.float32)
+            if self.encoder.channels_last_io:
+                flat = flat.transpose(-1, -2)
+            unit = _unit_rows(flat)
+            if store_dtype == "int8":
+                self._bank_q[i : i + step], self._bank_scale[i : i + step] = quantize_rows_int8(unit)
+            else:
+                self._bank_norm[i : i + step] = unit
 
     @torch.inference_mode()
     def encode(self, X: ArrayLike, subject_idxs: ArrayLike) -> torch.Tensor:
@@ -266,12 +303,24 @@ class SpeechDecoder:
 
     @torch.inference_mode()
     def retrieve(self, Z: torch.Tensor, k: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Top-k bank candidates per brain embedding: (scores, ids), each (B, k)."""
+        """Top-k bank candidates per brain embedding: (scores, ids), each (B,
+        min(k, N)). Under a group each rank takes the top-k of its block,
+        the (B, k) scores and global ids of every rank are gathered, and one
+        top-k over them gives every rank the same answer."""
         if self._bank_q is not None:
-            return retrieve_topk_int8(Z, self._bank_q, self._bank_scale, k=k)
-        if self._bank_norm is None:
+            scores, ids = retrieve_topk_int8(Z, self._bank_q, self._bank_scale, k=k)
+        elif self._bank_norm is not None:
+            scores, ids = retrieve_topk(Z, self._bank_norm, k=k)
+        else:
             raise RuntimeError("call set_bank() first")
-        return retrieve_topk(Z, self._bank_norm, k=k)
+        group = self._bank_group
+        if group is None:
+            return scores, ids
+        # (W, B, k_block) -> (B, W·k_block), in rank order: global ids ascending between blocks
+        scores = all_gather_stack(scores, group).transpose(0, 1).flatten(1)
+        ids = all_gather_stack(ids + self._bank_offset, group).transpose(0, 1).flatten(1)
+        best, pos = torch.topk(scores, min(int(k), self._bank_rows), dim=-1)
+        return best, torch.gather(ids, 1, pos)
 
     def decode(self, X: ArrayLike, subject_idxs: ArrayLike, k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
         """encode + retrieve: numpy (scores (B, k) f32, ids (B, k) int32)."""

@@ -28,25 +28,34 @@ across unchanged:
     GSPMD gives JAX's module path on a mesh);
   * GELU is exact (erf); initializers match torch defaults
     (U(±1/sqrt(fan_in)) for conv weights and biases, U(0, 1) for z), drawn
-    from the caller's ``torch.Generator``.
-
-Remat (``tpu.remat``) is not ported yet.
+    from the caller's ``torch.Generator``;
+  * ``remat`` (``tpu.remat``; JAX's ``nn.remat(ConvBlock)``) recomputes each
+    ConvBlock in the backward pass instead of keeping its activations
+    (``torch.utils.checkpoint``, non-reentrant: the backward runs the
+    forward pass's graph, and the recomputation only refills the tensors it
+    saved). As in flax, the running statistics move once a step: the
+    recomputation writes no buffer, and under a ``group`` it reuses the
+    forward's global BatchNorm sums instead of all-reducing again, so a
+    step makes the same collectives with and without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as Fn
+from torch.utils.checkpoint import checkpoint
 
 from speech_decoding_tpu_torch.ops.conv_block import dilations
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
 from speech_decoding_tpu_torch.ops.tap_conv import PallasTapConv, tap_conv_dw
-from speech_decoding_tpu_torch.parallel.collectives import all_reduce_sum
+from speech_decoding_tpu_torch.parallel.collectives import all_reduce_sum, kept_all_reduce_sum
 from speech_decoding_tpu_torch.parallel.mesh import DataGroup
 
 # tpu.conv_impl values: all compute the same function. The port runs the
@@ -67,6 +76,37 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return Fn.gelu(x, approximate="none")
 
 
+_REMAT = threading.local()  # .stash: the _RematStash of the ConvBlock running under remat, if any
+
+
+class _RematStash:
+    """One rematerialized ConvBlock call: the global BatchNorm sums its
+    forward pass computed (under a group), in call order, and whether the
+    block now runs as the backward pass's recomputation. ``contexts`` is
+    the ``context_fn`` of ``torch.utils.checkpoint``."""
+
+    def __init__(self):
+        self.sums = []
+        self.replaying = False
+        self.pos = 0
+
+    @contextlib.contextmanager
+    def _active(self, replaying: bool):
+        prev = getattr(_REMAT, "stash", None)
+        _REMAT.stash, self.replaying, self.pos = self, replaying, 0
+        try:
+            yield
+        finally:
+            _REMAT.stash = prev
+
+    def contexts(self):
+        return self._active(False), self._active(True)
+
+    def next_sums(self) -> torch.Tensor:
+        self.pos += 1
+        return self.sums[self.pos - 1]
+
+
 class TorchBatchNorm(nn.Module):
     """BatchNorm over (batch, time) per channel with torch.nn.BatchNorm1d
     semantics [ref: models.py:135,143]: parameters ``scale``/``bias`` and
@@ -78,7 +118,10 @@ class TorchBatchNorm(nn.Module):
     ranks by a differentiable all-reduce (whose backward sums the
     cotangents, so each rank's gradient is its share of the global one),
     and the mean, variance and n = W·B·T are the global batch's, identical
-    on every rank."""
+    on every rank. Inside a rematerialized block's recomputation the
+    running statistics are left alone, and under a group the sums are the
+    ones the forward pass kept (``kept_all_reduce_sum``: the same value and
+    backward, no collective)."""
 
     momentum = 0.1
 
@@ -93,6 +136,8 @@ class TorchBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, group: Optional[DataGroup] = None) -> torch.Tensor:
         if train:
+            stash = getattr(_REMAT, "stash", None)
+            replaying = stash is not None and stash.replaying
             xf = x.float()
             n = x.shape[0] * x.shape[1]
             if group is None:
@@ -100,13 +145,20 @@ class TorchBatchNorm(nn.Module):
                 var = (xf * xf).mean(dim=(0, 1)) - mean * mean
             else:
                 n *= group.world
-                sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 1)), (xf * xf).sum(dim=(0, 1))]), group)
+                local = torch.stack([xf.sum(dim=(0, 1)), (xf * xf).sum(dim=(0, 1))])
+                if replaying:
+                    sums = kept_all_reduce_sum(local, stash.next_sums(), group)
+                else:
+                    sums = all_reduce_sum(local, group)
+                    if stash is not None:
+                        stash.sums.append(sums.detach())
                 mean = sums[0] / n
                 var = sums[1] / n - mean * mean
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.mul_(1 - m).add_(m * mean)
-                self.var.mul_(1 - m).add_(m * (var * (n / max(n - 1, 1))))
+            if not replaying:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.mul_(1 - m).add_(m * mean)
+                    self.var.mul_(1 - m).add_(m * (var * (n / max(n - 1, 1))))
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.eps) * self.scale
@@ -294,14 +346,19 @@ class BrainEncoder(nn.Module):
     [ref: models.py:169-196]. Public layout matches the reference: X (B, C, T)
     -> Z (B, F, T); with ``channels_last_io`` X (B, T, C) -> Z (B, T, F).
     ``conv_impl`` "pallas_taps" runs the k=3 convs through K5; every other
-    value of ``CONV_IMPLS`` through ``TapConv``."""
+    value of ``CONV_IMPLS`` through ``TapConv``. ``remat``: a train forward
+    that records gradients keeps only each ConvBlock's input and recomputes
+    the block in the backward pass (the module docstring); eval, a forward
+    without gradients and ``fused_train_forward`` (which runs K6, not the
+    blocks) are unchanged."""
 
     def __init__(self, num_subjects: int, loc: np.ndarray, D1: int = 270, D2: int = 320,
                  F: int = 1024, K: int = 32, d_drop: float = 0.1, compute_dtype=torch.float32,
                  channels_last_io: bool = False, generator: Optional[torch.Generator] = None,
-                 conv_impl: str = "gemm"):
+                 conv_impl: str = "gemm", remat: bool = False):
         super().__init__()
         self.num_subjects, self.D1, self.D2, self.F, self.K = num_subjects, D1, D2, F, K
+        self.remat = remat
         self.d_drop = d_drop
         self.loc = np.asarray(loc, np.float32)
         self.compute_dtype = compute_dtype
@@ -324,13 +381,10 @@ class BrainEncoder(nn.Module):
         device of their tensors. ``tpu.conv_impl`` 'xla', 'gemm', 'gemm_pdw'
         and 'gemm_wide' compute the same function and all run ``TapConv``
         (dW through K2); 'pallas_taps' runs ``PallasTapConv`` (K5, dW through
-        K2). ``tpu.remat`` raises NotImplementedError until it is ported."""
+        K2). ``tpu.remat`` recomputes the ConvBlocks in the backward pass."""
         impl = str(args.select("tpu.conv_impl", "xla"))
         if impl not in CONV_IMPLS:
             raise ValueError(f"unknown tpu.conv_impl {impl!r}")
-        if args.select("tpu.remat", False):
-            raise NotImplementedError("tpu.remat is not ported yet: recomputing a block would update "
-                                      "its BatchNorm running statistics twice")
         F = 1024 if args.preprocs["last4layers"] else args.F  # [ref: models.py:176]
         dtype = getattr(torch, str(args.select("tpu.compute_dtype", "float32")))
         return cls(
@@ -338,6 +392,7 @@ class BrainEncoder(nn.Module):
             d_drop=float(args.d_drop), compute_dtype=dtype,
             channels_last_io=bool(args.select("tpu.channels_last_io", False)),
             generator=generator, conv_impl="pallas_taps" if impl == "pallas_taps" else "gemm",
+            remat=bool(args.select("tpu.remat", False)),
         )
 
     def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor, train: bool = False,
@@ -355,8 +410,14 @@ class BrainEncoder(nn.Module):
         if not self.channels_last_io:
             X = X.transpose(-1, -2)  # reference (B, C, T) -> internal (B, T, C)
         X = self.subject_block(X.to(self.compute_dtype), subject_idxs, drop_mask)
+        remat = self.remat and train and torch.is_grad_enabled()
         for blk in self.conv_blocks:
-            X = blk(X, train, group)
+            if remat:
+                # a ConvBlock draws no random numbers: no RNG state to restore
+                X = checkpoint(blk, X, train, group, use_reentrant=False, preserve_rng_state=False,
+                               context_fn=_RematStash().contexts)
+            else:
+                X = blk(X, train, group)
         X = _gelu(self.conv_final1(X))
         X = _gelu(self.conv_final2(X))
         return X if self.channels_last_io else X.transpose(-1, -2)

@@ -1,6 +1,7 @@
 """Data parallelism across processes: the "data" process group, host-local
-batches, the collectives of the step, and the sharded CLIP loss and
-retrieval (port of ``speech_decoding_tpu/parallel``)."""
+batches, the collectives of the step, the sharded CLIP loss and retrieval,
+and sharded brain preprocessing (``preproc_sharded``; port of
+``speech_decoding_tpu/parallel``)."""
 
 from speech_decoding_tpu_torch.parallel.clip_sharded import (
     accuracy_from_local_similarity,

@@ -17,12 +17,14 @@ the collective's transpose:
 A step built on them gives each rank its share of the gradient of the
 global loss; ``all_reduce_grads`` then sums the shares, in one all-reduce
 of every gradient flattened. Every rank must call every collective in the
-same order, as the identical step on every rank does.
+same order, as the identical step on every rank does. ``calls`` counts the
+collectives this process has made, by kind.
 """
 
 from __future__ import annotations
 
 import hashlib
+from collections import Counter
 from typing import Iterable, List
 
 import torch
@@ -30,12 +32,24 @@ import torch.distributed as dist
 
 from speech_decoding_tpu_torch.parallel.mesh import DataGroup
 
+calls: Counter = Counter()  # collectives made by this process: all_reduce, all_gather, broadcast
+
 
 def all_reduce_(t: torch.Tensor, group: DataGroup, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In place over the group's ranks (the default process group); ``t``
     lies on the group's device. Returns ``t``."""
+    calls["all_reduce"] += 1
     dist.all_reduce(t, op=op)
     return t
+
+
+def all_gather_stack(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """Every rank's ``x`` stacked in rank order: (W, ...). Not
+    differentiable; every rank passes the same shape and dtype."""
+    calls["all_gather"] += 1
+    parts = [torch.empty_like(x) for _ in range(group.world)]
+    dist.all_gather(parts, x.contiguous())
+    return torch.stack(parts)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -55,13 +69,34 @@ def all_reduce_sum(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+class _KeptAllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, total, group):
+        ctx.group = group
+        return total.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None, None
+
+
+def kept_all_reduce_sum(x: torch.Tensor, total: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """``all_reduce_sum(x, group)`` whose value ``total`` is already known
+    (an earlier call on the same ``x``): a copy of ``total``, made with no
+    collective, as a function of ``x``, so the ops after it record and save
+    what they did after ``all_reduce_sum``. A rematerialized block's
+    recomputation takes its BatchNorm sums so. The backward is
+    ``all_reduce_sum``'s; non-reentrant ``torch.utils.checkpoint``
+    differentiates the forward pass's graph (the recomputation only refills
+    its saved tensors), so inside a recomputation it is not reached."""
+    return _KeptAllReduceSum.apply(x, total, group)
+
+
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group, ctx.rows = group, x.shape[0]
-        parts = [torch.empty_like(x) for _ in range(group.world)]
-        dist.all_gather(parts, x.contiguous())
-        return torch.cat(parts)
+        return all_gather_stack(x, group).flatten(0, 1)
 
     @staticmethod
     def backward(ctx, g):
@@ -126,6 +161,7 @@ def all_reduce_int(value: int, group: DataGroup, op=dist.ReduceOp.SUM) -> int:
 def broadcast_ints(values: List[int], group: DataGroup) -> List[int]:
     """Rank 0's ``values`` (int64) on every rank."""
     t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=group.device)
+    calls["broadcast"] += 1
     dist.broadcast(t, src=0)
     return [int(v) for v in t.tolist()]
 

@@ -48,7 +48,7 @@ class DataGroup:
 def rank_block(n_rows: int, world: int, rank: int) -> slice:
     """Rows [rank·b, (rank+1)·b) of a global batch of n_rows = world·b."""
     if n_rows % world:
-        raise ValueError(f"global batch {n_rows} is not divisible by {world} ranks")
+        raise ValueError(f"{n_rows} rows are not divisible by {world} ranks")
     per = n_rows // world
     return slice(rank * per, (rank + 1) * per)
 

@@ -82,7 +82,7 @@ def make_encoder(args: Config, dims: Dict[str, int], seed: int = 0) -> BrainEnco
     return BrainEncoder(num_subjects=dims["S"], loc=loc, D1=dims["D1"], D2=dims["D2"], F=dims["F"], K=dims["K"],
                         d_drop=float(args.d_drop), compute_dtype=getattr(torch, args.tpu.compute_dtype),
                         channels_last_io=True, generator=torch.Generator().manual_seed(seed),
-                        conv_impl=str(args.tpu.conv_impl))
+                        conv_impl=str(args.tpu.conv_impl), remat=bool(args.select("tpu.remat", False)))
 
 
 def learning_gate(history, n_test: int = N_TEST) -> Dict[str, bool]:

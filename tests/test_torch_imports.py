@@ -37,9 +37,10 @@ def test_port_imports_no_jax():
               "tools.bench_wav2vec", "utils.natsort", "utils.wavio", "data.preproc_cache", "data.synthetic",
               "data.gwilliams2022", "data.device_resident", "data.brennan2018", "train", "tools.evaluate",
               "tools.import_torch_checkpoint", "examples", "examples.synthetic_demo", "parallel",
-              "parallel.mesh", "parallel.collectives", "parallel.clip_sharded", "parallel.multihost"):
+              "parallel.mesh", "parallel.collectives", "parallel.clip_sharded", "parallel.multihost",
+              "parallel.preproc_sharded"):
         assert f"speech_decoding_tpu_torch.{m}" in mods, m
-    assert len(mods) >= 60
+    assert len(mods) >= 61
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"

@@ -117,6 +117,36 @@ def test_channels_last_bank_alignment_and_check(model):
         cl.set_bank(model[3], store_dtype="float16")
 
 
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("store", ["float32", "int8"])
+def test_set_bank_in_row_chunks_equals_one_chunk(model, monkeypatch, store, channels_last):
+    """set_bank normalizes and quantizes a chunk of rows at a time into the
+    stored bank: 5 rows a chunk (the last one short) store the same bytes as
+    the whole bank in one chunk, against the bank's flatten in the
+    encoder's layout."""
+    import speech_decoding_tpu_torch.inference as inference
+
+    bank = model[3]
+    one = _port_decoder(model, False, channels_last)
+    one.set_bank(bank, store)
+    monkeypatch.setattr(inference, "_BANK_CHUNK_BYTES", 5 * 4 * F * T)
+    chunked = _port_decoder(model, False, channels_last)
+    chunked.set_bank(bank, store)
+    for name in ("_bank_norm", "_bank_q", "_bank_scale"):
+        a, b = getattr(one, name), getattr(chunked, name)
+        assert (a is None) == (b is None) == ((name == "_bank_norm") != (store == "float32"))
+        if a is not None:
+            assert a.shape[0] == N and torch.equal(a, b), name
+    rows = torch.from_numpy(np.swapaxes(bank, -1, -2) if channels_last else bank).reshape(N, -1)
+    unit = rows / rows.norm(dim=-1, keepdim=True)
+    if store == "float32":
+        torch.testing.assert_close(chunked._bank_norm, unit, rtol=1e-6, atol=1e-7)
+    else:
+        q, scale = quantize_rows_int8(unit)
+        assert (chunked._bank_q.int() - q.int()).abs().max() <= 1
+        torch.testing.assert_close(chunked._bank_scale, scale, rtol=1e-6, atol=1e-9)
+
+
 def test_self_bank_retrieves_itself(model):
     X, ids = _batch(3)
     td = _port_decoder(model, True)

@@ -316,8 +316,8 @@ def test_from_config_conv_impl_and_remat():
     assert y.grad_fn.next_functions[0][0].name() == "PallasTapConvBackward"
     with pytest.raises(ValueError, match="conv_impl"):
         BrainEncoder.from_config(load_config(None, ["tpu.conv_impl=fft"]), loc, num_subjects=S)
-    with pytest.raises(NotImplementedError, match="remat"):
-        BrainEncoder.from_config(load_config(None, ["tpu.remat=true"]), loc, num_subjects=S)
+    assert BrainEncoder.from_config(load_config(None, ["D1=16", "D2=16", "K=4", "tpu.remat=true"]), loc,
+                                    num_subjects=S).remat
 
 
 # -- loss and classifier ------------------------------------------------------------
