@@ -215,6 +215,27 @@ What it does, in order (one JSON object per line on stdout):
      resample chain, over NCCL at world size 1 and over two gloo ranks,
      each against the one-process function on the card at JAX's tolerances,
      with ms and MEG-s/s; no kernel launched;
+  19. the "model" axis (``parallel.make_grid``, the encoder split by
+     ``parallel.partition_encoder`` at min_dim 64: 21 of the train state's
+     60 leaves) in spawned ranks: (a) a 1×2 grid of two gloo ranks on
+     cuda:0, the flagship f32 step at global B=16 against the one-process
+     step (gradients summed over the data axis and gathered over the model
+     axis, phase 8's bounds) on the module convs, ``fused_train_blocks``
+     (K6 on gathered weights) and ``pallas_taps`` (K5 on gathered weights),
+     each with its launches and its collectives by axis; three bf16 steps at
+     B=64 against one process (losses, host-clock ms, collectives a step,
+     K1's body and launches, K2's); one more step in which every K1 (135
+     output columns, ``wmma``), K1 dX and K2 (Cout 160 and 320) launch is
+     held against its plain version; (c) one more step under
+     ``utils.profiling.trace`` with every model-axis collective in an
+     ``annotate`` range; (b) a 2×2 grid of four gloo ranks: the f32 check;
+     a 1×1 grid over NCCL at world size 1 (f32 check, 3 bf16 steps beside
+     the one-process step) and, in that fresh process, K1 forward and dX at
+     135 against 270 columns and K2's 15 launches at the block's Cout
+     against the whole, by CUDA events and on the device;
+  20. ``tools.ab_int8_retrieval`` once: 4,096 flagship candidates
+     (D = 368,640) and a B=64 query batch, the port's chunked bf16 upcast
+     against the whole-bank upcast, int8 × int8 → int32 chunks and f32;
   14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, each with its
      launches by path and device ms; K7 with its body, its bitwise partner
      and its tap3 route), the card line again, and last ``{"ok": true,
@@ -880,8 +901,15 @@ def dp_f32_check(group, device, fused: bool, n: int) -> dict:
     st, m = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused, group=group)(
         st, shard_batch(host, group), drop_mask=mask)
     torch.cuda.synchronize()
-    grads = {name: (p.grad, q.grad) for (name, p), (_, q) in zip(st.encoder.named_parameters(),
-                                                                  ref.encoder.named_parameters())}
+    return f32_step_errors(st, m, {n: p.grad for n, p in st.encoder.named_parameters()}, ref, m_ref)
+
+
+def f32_step_errors(st, m, grads, ref, m_ref) -> dict:
+    """A step's loss, temperature, gradients (``grads``: by parameter name,
+    whole and summed over the ranks) and BN running statistics against the
+    one-process step ``ref``/``m_ref`` on phase 8's bounds (``dp_f32_check``);
+    the errors over their bounds (<= 1 passes)."""
+    grads = {name: (grads[name], q.grad) for name, q in ref.encoder.named_parameters()}
     grads["clip.temp"] = (st.clip.temp.grad, ref.clip.temp.grad)
     gmax = max(float(w.abs().max()) for _, w in grads.values())
     worst = (0.0, "")
@@ -1255,7 +1283,8 @@ def ms_step_kernel_checks(step, state, batch, first_step: int):
     atol + rtol·|want| with atol a share of the plain output's largest
     entry: K1 and its dX 1e-2 and rtol 1e-2, K2 1e-4 and 1e-4, K5 and its dx
     1e-2 and 1e-2. Returns the new state and, by kernel and form, the
-    launches checked and the worst max(|got - want| - rtol·|want|) / atol."""
+    launches checked, the output shapes, K1's bodies and the worst
+    max(|got - want| - rtol·|want|) / atol."""
     import torch
 
     from speech_decoding_tpu_torch.ops import subject_conv as sc
@@ -1263,7 +1292,7 @@ def ms_step_kernel_checks(step, state, batch, first_step: int):
 
     checks = {}
 
-    def check(form, got, want, rel):
+    def check(form, got, want, rel, body=None):
         g, w = got.float(), want.float()
         atol = rel * float(w.abs().max()) or rel
         worst = float(((g - w).abs() - rel * w.abs()).max()) / atol
@@ -1273,6 +1302,8 @@ def ms_step_kernel_checks(step, state, batch, first_step: int):
         c["launches"] += 1
         c["err_over_bound"] = max(c["err_over_bound"], worst)
         c["shapes"].add(tuple(got.shape))
+        if body is not None:
+            c.setdefault("bodies", set()).add(body)
         return got
 
     k1, k2, k5 = sc._launch, tc._launch, tc._launch_conv
@@ -1280,7 +1311,8 @@ def ms_step_kernel_checks(step, state, batch, first_step: int):
     def k1_checked(x, w, sidx, transposed, host_ids=0):
         y = k1(x, w, sidx, transposed, host_ids)  # fills sidx from the host ids first
         return check("K1 dX" if transposed else "K1", y,
-                     sc.subject_matmul_plain(x, w.transpose(1, 2) if transposed else w, sidx), 1e-2)
+                     sc.subject_matmul_plain(x, w.transpose(1, 2) if transposed else w, sidx), 1e-2,
+                     sc.subject_matmul.route)
 
     def k2_checked(x, g, d, padded=None):
         return check("K2", k2(x, g, d, padded), tc.tap_conv_dw_plain(x, g, d), 1e-4)
@@ -1295,7 +1327,8 @@ def ms_step_kernel_checks(step, state, batch, first_step: int):
         torch.cuda.synchronize()
     finally:
         sc._launch, tc._launch, tc._launch_conv = k1, k2, k5
-    return state, {k: {**v, "shapes": sorted(map(list, v["shapes"]))} for k, v in checks.items()}
+    return state, {k: {**v, "shapes": sorted(map(list, v["shapes"])), **({"bodies": sorted(v["bodies"])} if "bodies" in v else {})}
+                   for k, v in checks.items()}
 
 
 def ms_remat_timings(device) -> dict:
@@ -1717,6 +1750,385 @@ def memory_scaling_phase(expect) -> dict:
                                       for name in ("bandpass", "chain")},
              launches=launches)
     return paths
+
+
+# -- 19. the "model" axis: a data × model grid (parallel.make_grid) ---------------------------------
+# NCCL refuses two ranks on one card, so the grids run over gloo ranks that
+# share cuda:0 (gloo stages each collective through the host: a check of the
+# arithmetic, not a rate), and NCCL runs a 1×1 grid at world size 1
+
+MA_MIN_DIM = 64  # param_shardings' default: at the flagship 21 of the train state's 60 leaves split
+
+
+def ma_state(dtype: str, grid, overrides=()):
+    """DP_SEED's flagship train state on the grid: the encoder partitioned
+    over ``grid.model`` (``partition_encoder``), then the optimizer."""
+    from speech_decoding_tpu_torch.parallel import partition_encoder
+    from speech_decoding_tpu_torch.tools import scale_run
+    from speech_decoding_tpu_torch.training import create_train_state
+
+    enc = scale_run.make_encoder(dp_args(dtype, overrides), scale_run.FLAGSHIP, DP_SEED)
+    partition_encoder(enc, grid, MA_MIN_DIM)
+    return create_train_state(enc, lr=3e-4, device=grid.data.device, group=grid)
+
+
+def ma_f32_check(grid, path: str, n: int = 16) -> dict:
+    """One f32 step of global batch n on the grid against the one-process
+    step on the whole batch, on this card from the same weights, batch and
+    mask: the gradients summed over the data axis and gathered over the
+    model axis, on phase 8's bounds (``f32_step_errors``); the grid step's
+    launches (counters set to 0 just before it and read just after) and
+    collectives by axis and kind. ``path``: module, fused or pallas_taps."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel import gather_split, shard_batch
+    from speech_decoding_tpu_torch.parallel.collectives import calls
+    from speech_decoding_tpu_torch.parallel.mesh import put_batch
+    from speech_decoding_tpu_torch.training import make_train_step
+
+    fused = path == "fused"
+    overrides = ["tpu.conv_impl=pallas_taps"] if path == "pallas_taps" else []
+    host, mask = dp_batch(n, 1), dp_mask(0)
+    ref = dp_state("float32", grid.data.device, overrides=overrides)
+    ref, m_ref = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused)(
+        ref, put_batch(host, ref.device), drop_mask=mask)
+    st = ma_state("float32", grid, overrides)
+    step = make_train_step(collate=FLAGSHIP_COLLATE, fused_blocks=fused, group=grid)
+    batch = shard_batch(host, grid.data)
+    torch.cuda.synchronize()
+    _reset_counts()
+    before = dict(calls)
+    st, m = step(st, batch, drop_mask=mask)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    made = {k: v - before.get(k, 0) for k, v in calls.items() if v - before.get(k, 0)}
+    grads = gather_split(st.encoder, {name: p.grad for name, p in st.encoder.named_parameters()})
+    return {**f32_step_errors(st, m, grads, ref, m_ref), "launches": launches, "collectives": made}
+
+
+def ma_collective_profile(step, state, batch, first_step: int, log_dir: str) -> dict:
+    """One bf16 grid step under ``utils.profiling.trace``, each model-axis
+    collective inside an ``annotate`` range: the ranges' calls, host ms and
+    device-timeline span against the step's host ms and device busy ms, and
+    the trace files written."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from speech_decoding_tpu_torch.parallel import collectives as col
+    from speech_decoding_tpu_torch.utils import profiling
+
+    all_reduce, all_gather = col.all_reduce_, col._all_gather
+
+    def annotated(fn, kind):
+        def wrapper(t, group, *args, **kwargs):
+            if group.axis != "model":
+                return fn(t, group, *args, **kwargs)
+            with profiling.annotate(f"model.{kind}"):
+                return fn(t, group, *args, **kwargs)
+        return wrapper
+
+    col.all_reduce_, col._all_gather = annotated(all_reduce, "all_reduce"), annotated(all_gather, "all_gather")
+    try:
+        with profiling.trace(log_dir) as prof:
+            t = time.perf_counter()
+            state, _ = step(state, batch, drop_mask=dp_mask(first_step))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        col.all_reduce_, col._all_gather = all_reduce, all_gather
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    # each range twice: on the host (its calls and time) and on the device
+    # timeline (the span from its first to its last kernel or copy)
+    ranges = {}
+    for e in prof.events():
+        if e.name in ("model.all_reduce", "model.all_gather"):
+            r = ranges.setdefault(e.name, {"calls": 0, "host_ms": 0.0, "device_span_ms": 0.0})
+            if e.device_type == DeviceType.CUDA:
+                r["device_span_ms"] += e.time_range.elapsed_us() / 1e3
+            else:
+                r["calls"] += 1
+                r["host_ms"] += e.time_range.elapsed_us() / 1e3
+    files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+    return state, {"ranges": ranges, "step_host_ms": step_ms,
+                   "step_device_busy_ms": busy_us / 1e3 if busy_us else "not measured",
+                   "trace_files": len(files), "trace_mb": sum(os.path.getsize(f) for f in files) / 1e6}
+
+
+def ma_rank_gloo_1x2(log_dir: str) -> dict:
+    """(a), (c) and (d): one of two gloo ranks on cuda:0 as a 1×2 grid."""
+    import torch
+
+    from speech_decoding_tpu_torch.ops import subject_conv as sc
+    from speech_decoding_tpu_torch.parallel import make_grid, shard_batch
+    from speech_decoding_tpu_torch.parallel.collectives import calls
+    from speech_decoding_tpu_torch.parallel.mesh import put_batch
+    from speech_decoding_tpu_torch.training import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = make_grid({"data": 1, "model": 2}, "cuda:0")
+    t = time.perf_counter()
+    out = {"rank": grid.model.rank, "device": str(grid.data.device),
+           "f32_b16": {path: ma_f32_check(grid, path) for path in ("module", "fused", "pallas_taps")}}
+    t_f32 = time.perf_counter()
+    # (a) three bf16 steps at B=64 on the grid and in one process
+    host = dp_batch(64, 2)
+    one = dp_state("bfloat16", grid.data.device)
+    one_step = make_train_step(collate=FLAGSHIP_COLLATE)
+    out["one_process_losses"] = [float(one_step(one, put_batch(host, one.device), drop_mask=dp_mask(i))[1]["loss"])
+                                 for i in range(3)]
+    del one
+    st = ma_state("bfloat16", grid)
+    step = make_train_step(collate=FLAGSHIP_COLLATE, group=grid)
+    batch = shard_batch(host, grid.data)
+    torch.cuda.synchronize()
+    _reset_counts()
+    before = dict(calls)
+    losses, ms = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        st, m = step(st, batch, drop_mask=dp_mask(i))
+        losses.append(float(m["loss"]))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["bf16"] = {"losses": losses, "ms_per_step_host_clock": ms, "launches": _read_counts(),
+                   "k1_last_body": sc.subject_matmul.route,
+                   "collectives_per_step": {k: (v - before.get(k, 0)) / 3 for k, v in calls.items()
+                                            if v - before.get(k, 0)}}
+    # one more step with every K1 and K2 launch held against its plain version
+    st, out["kernel_checks"] = ms_step_kernel_checks(step, st, batch, 3)
+    t_bf16 = time.perf_counter()
+    # (c) one more step traced, the model-axis collectives annotated
+    st, out["profile"] = ma_collective_profile(step, st, batch, 4, os.path.join(log_dir, f"rank{grid.model.rank}"))
+    out["seconds"] = {"f32": t_f32 - t, "bf16": t_bf16 - t_f32, "profile": time.perf_counter() - t_bf16}
+    return out
+
+
+def ma_rank_gloo_2x2() -> dict:
+    """(b): one of four gloo ranks on cuda:0 as a 2×2 grid: the f32 check."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel import make_grid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = make_grid({"data": 2, "model": 2}, "cuda:0")
+    return {"rank": (grid.data.rank, grid.model.rank), "f32_b16": ma_f32_check(grid, "module")}
+
+
+def ma_rank_nccl() -> dict:
+    """A 1×1 grid over NCCL at world size 1 (nothing splits at m=1: the
+    grid's process groups and its step on NCCL), f32 against one process and
+    three bf16 steps timed beside the one-process step; then, in this
+    process no profiler has slowed yet, K1 and K2 at the column blocks a
+    1×2 grid gives them beside their whole widths, by CUDA events and on the
+    device."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel import make_grid
+    from speech_decoding_tpu_torch.parallel.mesh import put_batch
+    from speech_decoding_tpu_torch.training import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = make_grid({"data": 1, "model": 1})
+    out = {"world": grid.data.world, "device": str(grid.data.device), "f32_b8": ma_f32_check(grid, "module", 8)}
+    batch = put_batch(dp_batch(64, 2), grid.data.device)
+    for name, st, grp in (("one_process", dp_state("bfloat16", grid.data.device), None),
+                          ("grid", ma_state("bfloat16", grid), grid)):
+        step = make_train_step(collate=FLAGSHIP_COLLATE, group=grp)
+        for i in range(2):
+            st, _ = step(st, batch, drop_mask=dp_mask(i))
+        out[name] = dp_timed_steps(st, step, batch, 3, 2)
+    out["block_kernels"] = ma_block_kernel_timings(grid.data.device)
+    return out
+
+
+def ma_block_kernel_timings(device) -> dict:
+    """K1 forward and dX at the flagship B=64 with W's 270 output columns
+    whole (the ``wgmma`` body) and as a 1×2 grid's 135-column block (odd
+    Dout: the ``wmma`` body), and K2's 15 launches of a step at the whole
+    Cout (320, 640) and at the block's (160, 320): ms by CUDA events, then
+    device ms (``torch.profiler``), the bodies taken and each bound."""
+    import torch
+
+    from speech_decoding_tpu_torch.ops import subject_conv as sc
+    from speech_decoding_tpu_torch.ops.conv_block import dilations
+    from speech_decoding_tpu_torch.ops.tap_conv import tap_conv_dw
+    from speech_decoding_tpu_torch.tools import scale_run
+
+    peaks = peaks_for(torch.cuda.get_device_name(device))
+    d = scale_run.FLAGSHIP
+    B, T, S, D1, D2 = 64, d["T"], d["S"], 270, 320
+    gen = torch.Generator(device=device).manual_seed(DP_SEED)
+    bf = torch.bfloat16
+    sidx = torch.randint(0, S, (B,), device=device, generator=gen, dtype=torch.int32)
+    w = (torch.randn(S, D1, D1, device=device, generator=gen) / D1 ** 0.5).to(bf)
+    x = torch.randn(B, T, D1, device=device, generator=gen).to(bf)
+    fns = {}
+    for label, cols in (("whole", D1), ("block", D1 // 2)):
+        wb = w[..., :cols].contiguous()
+        g = torch.randn(B, T, cols, device=device, generator=gen).to(bf)
+        for form, args in (("K1", (x, wb, sidx, False)), ("K1 dX", (g, wb, sidx, True))):
+            flops = 2 * B * T * D1 * cols
+            moved = nbytes(args[0], wb) + 2 * B * T * (D1 if form == "K1 dX" else cols)
+            fns[f"{form} {label} ({cols} columns)"] = (lambda a=args: sc._launch(*a), bound_ms(flops, moved, peaks, "bf16"))
+    taps = flagship_convs(D1, D2, dilations)
+    for label, div in (("whole", 1), ("block", 2)):
+        ops = [(torch.randn(B, T, cin, device=device, generator=gen).to(bf),
+                torch.randn(B, T, cout // div, device=device, generator=gen).to(bf), dd) for cin, cout, dd in taps]
+        flops = sum(2 * 3 * B * T * a.shape[2] * gg.shape[2] for a, gg, _ in ops)
+        moved = sum(nbytes(a, gg) + 3 * a.shape[2] * gg.shape[2] * 4 for a, gg, _ in ops)
+
+        def k2_all(ops=ops):
+            for a, gg, dd in ops:
+                tap_conv_dw(a, gg, dd)
+        fns[f"K2 15 launches {label} (Cout {'320/640' if div == 1 else '160/320'})"] = (k2_all, bound_ms(flops, moved, peaks, "bf16"))
+    out = {}
+    for name, (fn, (bnd, by)) in fns.items():
+        fn()
+        out[name] = {"ms": time_ms(fn), "bound_ms": bnd, "bound_by": by}
+        if name.startswith("K1"):
+            out[name]["body"] = sc.subject_matmul.route
+    for name, (fn, _) in fns.items():  # device times last: a profiler trace slows later launches on the host
+        dev = device_ms(fn)
+        out[name]["device_ms"] = dev if dev is not None else "not measured"
+    return out
+
+
+def model_axis_phase(expect) -> dict:
+    """Phase 19 in the parent: spawn the grids' ranks, check what they
+    return and print the lines; returns the launch counts of each grid path
+    (summed over the ranks)."""
+    import torch
+
+    from speech_decoding_tpu_torch.parallel.multihost import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    per_step = {"module": expect(subject_matmul=2, tap_conv_dw=15),
+                "fused": expect(subject_matmul=2, tap_conv_dw=15, F1=5, F2=5, F3=5, B1=5, B2=5, B3=5),
+                "pallas_taps": expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30)}
+    model_calls = {"module": {"model.all_reduce": 20, "model.all_gather": 19},
+                   "fused": {"model.all_reduce": 5, "model.all_gather": 19},
+                   "pallas_taps": {"model.all_reduce": 5, "model.all_gather": 19}}
+    data_calls = {"data.all_reduce": 27, "data.all_gather": 1}
+    paths = {}
+
+    def f32_ok(label, c, path, m_split=True):
+        bad = {k: v for k, v in c.items() if k.endswith("over_bound") and not v <= 1.0}
+        want_calls = {**data_calls, **(model_calls[path] if m_split else {})}
+        if bad or not c["topk_equal"] or c["launches"] != per_step[path] or c["collectives"] != want_calls:
+            raise AssertionError(f"{label}: the grid step differs from one process: {c}")
+        emit(check=label, **c, bounds="phase 8's: loss rtol 1e-4, temperature 1e-6, gradients (summed over the data "
+                                      "axis, gathered over the model axis) 1e-3 of the tensor's largest + 1e-4 of "
+                                      "the model's, BN statistics atol 1e-5 + rtol 1e-4")
+
+    def summed(runs):
+        return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        t = time.perf_counter()
+        a = spawn_ranks(ma_rank_gloo_1x2, 2, args=(log_dir,), backend="gloo", timeout=600)
+        a_s = time.perf_counter() - t
+        t = time.perf_counter()
+        b = spawn_ranks(ma_rank_gloo_2x2, 4, backend="gloo", timeout=600)
+        b_s = time.perf_counter() - t
+        t = time.perf_counter()
+        c = spawn_ranks(ma_rank_nccl, 1, backend="nccl", timeout=600)[0]
+        c_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    emit(timing="phase 19: seconds a spawn", gloo_1x2_s=a_s, gloo_1x2_rank_parts_s=[r["seconds"] for r in a],
+         gloo_2x2_s=b_s, nccl_1x1_s=c_s)
+
+    # (a) and (d): the 1×2 grid's f32 checks, its bf16 steps and their kernels
+    for path in ("module", "fused", "pallas_taps"):
+        for r in a:
+            f32_ok(f"model axis 1x2 f32 B=16 {path}, gloo rank {r['rank']} of 2", r["f32_b16"][path], path)
+        paths[f"ma_1x2_f32_{path}"] = summed([r["f32_b16"][path]["launches"] for r in a])
+    one_losses = a[0]["one_process_losses"]
+    for r in a:
+        bf = r["bf16"]
+        if bf["launches"] != {k: 3 * v for k, v in per_step["module"].items()}:
+            raise AssertionError(f"model axis 1x2 bf16: launches {bf['launches']}")
+        if bf["collectives_per_step"] != {**data_calls, **model_calls["module"]}:
+            raise AssertionError(f"model axis 1x2 bf16: collectives {bf['collectives_per_step']}")
+        rel = [abs(x - y) / abs(y) for x, y in zip(bf["losses"], one_losses)]
+        if bf["losses"] != a[0]["bf16"]["losses"] or not (rel[0] <= 1e-3 and max(rel) <= 1e-2):
+            raise AssertionError(f"model axis 1x2 bf16 losses {bf['losses']} against one process {one_losses}")
+        kc = r["kernel_checks"]
+        shapes = {form: {tuple(s_) for s_ in c_["shapes"]} for form, c_ in kc.items()}
+        if (sorted(kc) != ["K1", "K1 dX", "K2"] or not all(c_["err_over_bound"] <= 1.0 for c_ in kc.values())
+                or kc["K1"]["bodies"] != ["wmma"] or kc["K1 dX"]["bodies"] != ["wmma"]
+                or shapes["K1"] != {(64, 360, 135)} or {s_[2] for s_ in shapes["K2"]} != {160, 320}):
+            raise AssertionError(f"model axis 1x2: K1 and K2 on the column blocks: {kc}")
+    paths["ma_1x2_bf16"] = summed([r["bf16"]["launches"] for r in a])
+    emit(phase="model_axis_gloo_1x2", backend="gloo", world=2, grid={"data": 1, "model": 2}, device=a[0]["device"],
+         config="flagship: B=64 C=208 T=360 D1=270 D2=320 F=1024 K=32 S=27, bf16, channels-last, precomputed "
+                "collate stats, conv_impl=gemm_pdw; param_shardings min_dim 64 (21 of 60 leaves split)",
+         losses=a[0]["bf16"]["losses"], one_process_losses=one_losses,
+         loss_rel_diff=[abs(x - y) / abs(y) for x, y in zip(a[0]["bf16"]["losses"], one_losses)],
+         ms_per_step_host_clock_check_only=[r["bf16"]["ms_per_step_host_clock"] for r in a],
+         collectives_per_step=a[0]["bf16"]["collectives_per_step"],
+         launches_per_rank=[r["bf16"]["launches"] for r in a], k1_last_body=[r["bf16"]["k1_last_body"] for r in a],
+         kernel_checks=[r["kernel_checks"] for r in a],
+         bounds="bf16 losses against one process: the first step's rtol 1e-3, the later ones 1e-2 (the grid sums its "
+                "input-gradient partials in bf16, and Adam turns that rounding into moves of ±lr); kernels phase 3's "
+                "bf16: K1, K1 dX 1e-2 and rtol 1e-2, K2 1e-4 and 1e-4")
+    # (c) the traced step
+    for r in a:
+        pr = r["profile"]
+        calls_ = {k: v["calls"] for k, v in pr["ranges"].items()}
+        if pr["trace_files"] < 1 or calls_ != {"model.all_gather": 19, "model.all_reduce": 20}:
+            raise AssertionError(f"model axis profile: {pr}")
+    emit(profile="model axis 1x2: one bf16 grid step under utils.profiling.trace, each model-axis collective in "
+                 "an annotate range (gloo: staged through the host)", by_rank=[r["profile"] for r in a])
+
+    # (b) the 2×2 grid
+    for r in b:
+        f32_ok(f"model axis 2x2 f32 B=16 module, gloo rank {r['rank']} (data, model)", r["f32_b16"], "module")
+    paths["ma_2x2_f32_module"] = summed([r["f32_b16"]["launches"] for r in b])
+
+    # NCCL at world size 1: a 1×1 grid, and the column-block kernel timings
+    f32_ok("model axis 1x1 f32 B=8 module, NCCL world 1", c["f32_b8"], "module", m_split=False)
+    for name in ("one_process", "grid"):
+        if c[name]["launches"] != {k: 3 * v for k, v in per_step["module"].items()}:
+            raise AssertionError(f"model axis NCCL 1x1 {name}: launches {c[name]['launches']}")
+    paths["ma_nccl_1x1"] = c["grid"]["launches"]
+    emit(phase="model_axis_nccl_1x1", backend="nccl", world=c["world"], device=c["device"],
+         config="flagship bf16 B=64, conv_impl=gemm_pdw, grid 1x1 (nothing splits)", steps=3,
+         grid_ms_per_step_cuda_events=c["grid"]["ms_per_step_cuda_events"],
+         grid_ms_per_step_host_clock=c["grid"]["ms_per_step_host_clock"],
+         one_process_ms_per_step_cuda_events=c["one_process"]["ms_per_step_cuda_events"],
+         one_process_ms_per_step_host_clock=c["one_process"]["ms_per_step_host_clock"],
+         losses=c["grid"]["losses"], one_process_losses=c["one_process"]["losses"])
+    bk = c["block_kernels"]
+    for name, v in bk.items():
+        if name.startswith("K1") and v["body"] != ("wgmma" if "whole" in name else "wmma"):
+            raise AssertionError(f"{name}: body {v['body']}")
+    emit(timing="K1 and K2 at a 1x2 grid's column blocks beside their whole widths (flagship B=64, bf16; NCCL rank, "
+                "before any profiler trace)", by_call=bk)
+    return paths
+
+
+def int8_retrieval_ab() -> dict:
+    """The port's ``tools.ab_int8_retrieval`` once at the flagship's D with
+    4,096 candidates and a serving batch of 64."""
+    import torch
+
+    from speech_decoding_tpu_torch.tools import ab_int8_retrieval as ab
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r = ab.ab(4096, batch=64, device="cuda")
+    if r["whole_top1_agreement"] != 1.0 or r["int32_top1_agreement"] != 1.0 or r["int32_max_score_diff"] > 1e-5:
+        raise AssertionError(f"ab_int8_retrieval: the int8 routes disagree: {r}")
+    emit(**{**r, "tool": "speech_decoding_tpu_torch.tools.ab_int8_retrieval"},
+         port_minus_whole_ms=r["port_ms"] - r["whole_ms"])
+    torch.cuda.empty_cache()
+    return r
 
 
 def main() -> int:
@@ -3055,11 +3467,17 @@ def main() -> int:
     ms_paths = memory_scaling_phase(expect)
     emit(phase="memory_scaling", seconds=time.perf_counter() - t)
 
+    # -- 19. the model axis; the int8 contraction A/B -----------------------------------------------
+    t = time.perf_counter()
+    ma_paths = model_axis_phase(expect)
+    emit(phase="model_axis", seconds=time.perf_counter() - t)
+    int8_retrieval_ab()
+
     # -- 14. summary ---------------------------------------------------------
     paths = {"serve": launches, "train": train_launches, "eval": eval_launches, "fused_train": fused_launches,
              "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"], "tool": tool_launches,
              "trainer": trainer_launches, "trainer_fused": fused_trainer_launches, "preemption": preempt_launches,
-             "checkpoint_serve": serve_ck_launches, **prep_paths, **cli_paths, **dp_paths, **ms_paths}
+             "checkpoint_serve": serve_ck_launches, **prep_paths, **cli_paths, **dp_paths, **ms_paths, **ma_paths}
 
     def launches_of(kernel):
         return sum(p[kernel] for p in paths.values())

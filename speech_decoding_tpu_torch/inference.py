@@ -71,6 +71,14 @@ def quantize_rows_int8(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale.float()
 
 
+def quantize_query_int8(Z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unit-normalized, flattened query rows quantized per row as the
+    bank's are: (zq (B, D) int8, zscale (B, 1) f32)."""
+    z = _unit_rows(Z)
+    zscale = z.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.round(z / zscale).to(torch.int8), zscale
+
+
 def _int8_sim(zq: torch.Tensor, bank_q: torch.Tensor) -> torch.Tensor:
     """(B, N) f32 dot products of int8-valued rows. On the card both operands
     are upcast to bf16 (exact for int8 values), a chunk of bank rows at a
@@ -93,9 +101,7 @@ def retrieve_topk_int8(Z: torch.Tensor, bank_q: torch.Tensor, bank_scale: torch.
     row-quantized to int8 on the fly, the similarity contracts the int8
     values with f32 accumulation (no int32 overflow at any D) and is scaled
     back per row. bank_q (N, D) int8; bank_scale (N,) f32."""
-    z = _unit_rows(Z)
-    zscale = z.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
-    zq = torch.round(z / zscale).to(torch.int8)
+    zq, zscale = quantize_query_int8(Z)
     sim = _int8_sim(zq, bank_q) * zscale * bank_scale[None, :]
     return torch.topk(sim, min(int(k), bank_q.shape[0]), dim=-1)
 

@@ -36,7 +36,20 @@ across unchanged:
     saved). As in flax, the running statistics move once a step: the
     recomputation writes no buffer, and under a ``group`` it reuses the
     forward's global BatchNorm sums instead of all-reducing again, so a
-    step makes the same collectives with and without remat.
+    step makes the same collectives with and without remat;
+  * on a ("data", "model") grid (``parallel.sharding_rules
+    .partition_encoder``) a module whose parameter is split holds its
+    column block and the grid's ``model_group``, and runs column-parallel:
+    ``copy_to_model`` on its input, its product on the block (K2's dW and
+    K1 on the block's columns), ``gather_from_model`` of the output, then
+    the whole bias. The spatial attention's split is K², the contraction
+    dim of its logits: the partial logits go through ``reduce_from_model``
+    before the softmax. Under ``pallas_taps`` a split k=3 conv gathers its
+    kernel and runs K5 on the whole weights, as JAX's GSPMD gathers a
+    ``P(..., "model")`` parameter before a Pallas call. BatchNorm runs on
+    whole channels after the gathers, its sums over the ``group`` passed to
+    ``forward`` (the grid's data axis). Every model rank then runs the same
+    graph on the same rows, which the three collectives' backwards assume.
 """
 
 from __future__ import annotations
@@ -55,8 +68,10 @@ from torch.utils.checkpoint import checkpoint
 from speech_decoding_tpu_torch.ops.conv_block import dilations
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
 from speech_decoding_tpu_torch.ops.tap_conv import PallasTapConv, tap_conv_dw
-from speech_decoding_tpu_torch.parallel.collectives import all_reduce_sum, kept_all_reduce_sum
-from speech_decoding_tpu_torch.parallel.mesh import DataGroup
+from speech_decoding_tpu_torch.parallel.collectives import (
+    all_reduce_sum, copy_to_model, gather_from_model, kept_all_reduce_sum, reduce_from_model,
+)
+from speech_decoding_tpu_torch.parallel.mesh import DataGroup, ModelGroup
 
 # tpu.conv_impl values: all compute the same function. The port runs the
 # first four through TapConv (so every train step on the card runs K2) and
@@ -213,7 +228,11 @@ class Conv1d(nn.Module):
     k=1 is one flat (B·T, Cin) GEMM, k=3 is ``TapConv`` (three shifted
     full-width GEMMs, dW through K2), or ``PallasTapConv`` (K5, dW through
     K2) when ``impl`` is "pallas_taps". The encoder has no other kernel size,
-    and K2 and K5 compute exactly three taps, so others raise ValueError."""
+    and K2 and K5 compute exactly three taps, so others raise ValueError.
+    With a ``model_group`` the kernel is this rank's column block (module
+    docstring)."""
+
+    model_group: Optional[ModelGroup] = None
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
                  dilation: int = 1, compute_dtype=torch.float32, generator=None, impl: str = "gemm"):
@@ -229,10 +248,20 @@ class Conv1d(nn.Module):
         self.kernel = _uniform((kernel_size, in_features, features), bound, generator)
         self.bias = _uniform((features,), bound, generator)
 
+    def whole_kernel(self) -> torch.Tensor:
+        """The whole (k, in, out) kernel: gathered over the model group when
+        split (differentiable; every model rank must call)."""
+        return self.kernel if self.model_group is None else gather_from_model(self.kernel, self.model_group)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         x = x.to(dt)
         w = self.kernel.to(dt)
+        mg = self.model_group
+        if mg is not None and self.impl == "pallas_taps" and w.shape[0] == 3:
+            w, mg = gather_from_model(w, mg), None
+        if mg is not None:
+            x = copy_to_model(x, mg)
         B, T, Cin = x.shape
         if w.shape[0] == 1:
             y = (x.reshape(B * T, Cin) @ w[0]).reshape(B, T, -1)
@@ -240,6 +269,8 @@ class Conv1d(nn.Module):
             y = PallasTapConv.apply(x.contiguous(), w.contiguous(), self.dilation)
         else:
             y = TapConv.apply(x, w, self.dilation)
+        if mg is not None:
+            y = gather_from_model(y, mg)
         return y + self.bias.to(dt)
 
 
@@ -274,7 +305,12 @@ class SpatialAttention(nn.Module):
     """Fourier-parameterized spatial re-mixing of sensor channels
     [ref: models.py:14-65]: logits a = Re(z)·cos(phi) + Im(z)·sin(phi),
     softmax over channels in f32, then a channel mix in the compute dtype. A
-    ``drop_mask`` (C,) zeroes dropped sensors first (train mode)."""
+    ``drop_mask`` (C,) zeroes dropped sensors first (train mode). With a
+    ``model_group``, z holds this rank's block of the K² columns and the
+    bases the same rows: the partial logits are summed over the model
+    ranks."""
+
+    model_group: Optional[ModelGroup] = None
 
     def __init__(self, D1: int, K: int, loc: np.ndarray, compute_dtype=torch.float32, generator=None):
         super().__init__()
@@ -287,6 +323,8 @@ class SpatialAttention(nn.Module):
 
     def forward(self, X: torch.Tensor, drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         a = self.z_re @ self.cos_b + self.z_im @ self.sin_b  # (D1, C)
+        if self.model_group is not None:
+            a = reduce_from_model(a, self.model_group)
         wts = torch.softmax(a, dim=-1).to(self.compute_dtype)
         X = X.to(self.compute_dtype)
         if drop_mask is not None:
@@ -296,7 +334,10 @@ class SpatialAttention(nn.Module):
 
 class SubjectBlock(nn.Module):
     """SpatialAttention -> shared 1x1 conv -> per-subject bias-free 1x1 conv
-    [ref: models.py:89-117]. ``subject_kernel`` is (S, D1_in, D1_out)."""
+    [ref: models.py:89-117]. ``subject_kernel`` is (S, D1_in, D1_out); with
+    a ``model_group``, this rank's block of D1_out, through K1."""
+
+    model_group: Optional[ModelGroup] = None
 
     def __init__(self, num_subjects: int, D1: int, K: int, loc: np.ndarray,
                  compute_dtype=torch.float32, generator=None):
@@ -310,7 +351,10 @@ class SubjectBlock(nn.Module):
                 drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         X = self.conv(self.spatial_attention(X, drop_mask))
         W = self.subject_kernel.to(self.compute_dtype)
-        return subject_matmul(X.contiguous(), W.contiguous(), subject_idxs)
+        mg = self.model_group
+        if mg is None:
+            return subject_matmul(X.contiguous(), W.contiguous(), subject_idxs)
+        return gather_from_model(subject_matmul(copy_to_model(X, mg).contiguous(), W.contiguous(), subject_idxs), mg)
 
 
 class ConvBlock(nn.Module):

@@ -15,7 +15,11 @@ variance with n = B·T) written into each block's ``TorchBatchNorm`` buffers
 in place, as the module path does. JAX's ``fused_train_forward_sharded``
 is the ``group`` argument: X is the rank's block, K6's BN sums are summed
 over the ranks (``ops.conv_block_train``), and n = W·B·T, so every rank
-writes the global batch's running statistics.
+writes the global batch's running statistics. On a grid ``group`` is the
+data axis, and K6 runs on whole weights: a split conv kernel is gathered
+over its model group first (``Conv1d.whole_kernel``), as JAX's fused path
+takes its parameters replicated and GSPMD gathers them before the Pallas
+call; the SubjectBlock and the heads stay column-parallel.
 """
 
 from __future__ import annotations
@@ -41,8 +45,8 @@ def fused_train_forward(encoder, X: torch.Tensor, subject_idxs: torch.Tensor,
     """Z of ``encoder`` (a ``BrainEncoder``) in train mode, its BN running
     statistics updated in place. Spatial dropout takes ``drop_mask`` (C,) if
     given, else draws one from ``generator``, as the module path does.
-    ``group`` (a ``parallel.DataGroup``): synchronized BatchNorm over the
-    ranks' blocks."""
+    ``group`` (a ``parallel.DataGroup``; a grid's ``data``): synchronized
+    BatchNorm over the ranks' blocks."""
     if drop_mask is None:
         drop_mask = spatial_dropout_mask(generator, encoder.loc, encoder.d_drop)
     if not encoder.channels_last_io:
@@ -52,9 +56,9 @@ def fused_train_forward(encoder, X: torch.Tensor, subject_idxs: torch.Tensor,
     for k, blk in enumerate(encoder.conv_blocks):
         bn0, bn1 = blk.batchnorm0, blk.batchnorm1
         h, (m0, v0, m1, v1) = conv_block_train(
-            h, blk.conv0.kernel, blk.conv0.bias, bn0.scale, bn0.bias,
-            blk.conv1.kernel, blk.conv1.bias, bn1.scale, bn1.bias,
-            blk.conv2.kernel, blk.conv2.bias, k, bn0.eps, group,
+            h, blk.conv0.whole_kernel(), blk.conv0.bias, bn0.scale, bn0.bias,
+            blk.conv1.whole_kernel(), blk.conv1.bias, bn1.scale, bn1.bias,
+            blk.conv2.whole_kernel(), blk.conv2.bias, k, bn0.eps, group,
         )
         _running_update(bn0, m0, v0, n)
         _running_update(bn1, m1, v1, n)

@@ -548,8 +548,8 @@ class _ConvBlockTrain(torch.autograd.Function):
     the saved tensors are its residuals, x, y0 and y1 with the statistics;
     h0, h1 and y2 are recomputed in the backward.
 
-    Under a data-parallel ``group`` (JAX's ``axis_name``) x is this rank's
-    block, n = W·B·T, and the BN sums are summed over the ranks where JAX
+    Under a data-parallel ``group`` (JAX's ``axis_name``; on a grid, its
+    data axis) x is this rank's block, n = W·B·T, and the BN sums are summed over the ranks where JAX
     psums them: s0 after F1, s1 after F2, s_bn1 after B1 and s_bn0 after
     B2. The BN scale and bias gradients it returns stay this rank's partial
     sums, as JAX leaves them: the train step's gradient all-reduce sums them

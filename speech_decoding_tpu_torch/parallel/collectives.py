@@ -1,4 +1,5 @@
-"""The collectives of the data-parallel step, on a ``DataGroup``.
+"""The collectives of the data-parallel and model-parallel step, on a
+``DataGroup`` or ``ModelGroup`` (each call on the group's process group).
 
 No single JAX counterpart: JAX writes ``psum``, ``pmax`` and ``all_gather``
 inside ``shard_map`` (``parallel/clip_sharded.py``,
@@ -16,9 +17,27 @@ the collective's transpose:
 
 A step built on them gives each rank its share of the gradient of the
 global loss; ``all_reduce_grads`` then sums the shares, in one all-reduce
-of every gradient flattened. Every rank must call every collective in the
-same order, as the identical step on every rank does. ``calls`` counts the
-collectives this process has made, by kind.
+of every gradient flattened.
+
+On the "model" axis (``parallel.sharding_rules``: column-parallel layers,
+JAX's ``P(..., "model")`` parameters, whose collectives GSPMD inserts) three
+more, each backward the transpose given that every model rank runs the
+identical downstream graph on the identical rows (Megatron's regions):
+
+  * ``copy_to_model``: identity; backward all-reduces over the model
+    group, since a column-parallel layer's input gradient is the sum over
+    its column blocks;
+  * ``gather_from_model``: the ranks' blocks concatenated along the last
+    (channel) dim in model-rank order; backward this rank's own block of
+    the cotangent (``all_gather_rows``' backward, which all-reduces, would
+    multiply every gradient by m here);
+  * ``reduce_from_model``: an all-reduce; backward the cotangent unchanged
+    (``sum_to_all`` on the model group).
+
+Every rank of a group must call every collective in the same order, as the
+identical step on every rank does. ``calls`` counts the collectives this
+process has made, by axis and kind ("data.all_reduce", "model.all_gather",
+...).
 """
 
 from __future__ import annotations
@@ -32,24 +51,28 @@ import torch.distributed as dist
 
 from speech_decoding_tpu_torch.parallel.mesh import DataGroup
 
-calls: Counter = Counter()  # collectives made by this process: all_reduce, all_gather, broadcast
+calls: Counter = Counter()  # collectives made by this process, "<axis>.<kind>": all_reduce, all_gather, broadcast
 
 
 def all_reduce_(t: torch.Tensor, group: DataGroup, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In place over the group's ranks (the default process group); ``t``
-    lies on the group's device. Returns ``t``."""
-    calls["all_reduce"] += 1
-    dist.all_reduce(t, op=op)
+    """In place over the group's ranks; ``t`` lies on the group's device.
+    Returns ``t``."""
+    calls[f"{group.axis}.all_reduce"] += 1
+    dist.all_reduce(t, op=op, group=group.pg)
     return t
+
+
+def _all_gather(x: torch.Tensor, group: DataGroup) -> List[torch.Tensor]:
+    calls[f"{group.axis}.all_gather"] += 1
+    parts = [torch.empty_like(x) for _ in range(group.world)]
+    dist.all_gather(parts, x.contiguous(), group=group.pg)
+    return parts
 
 
 def all_gather_stack(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
     """Every rank's ``x`` stacked in rank order: (W, ...). Not
     differentiable; every rank passes the same shape and dtype."""
-    calls["all_gather"] += 1
-    parts = [torch.empty_like(x) for _ in range(group.world)]
-    dist.all_gather(parts, x.contiguous())
-    return torch.stack(parts)
+    return torch.stack(_all_gather(x, group))
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -130,6 +153,49 @@ def sum_to_all(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
     return _SumToAll.apply(x, group)
 
 
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+def copy_to_model(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """``x`` unchanged, as the input of a column-parallel layer on the model
+    ``group``: the backward sums the model ranks' partial input gradients."""
+    return _CopyToModel.apply(x, group)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.cols = group, x.shape[-1]
+        return torch.cat(_all_gather(x, group), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, c = ctx.group.rank, ctx.cols
+        return g[..., r * c : (r + 1) * c].contiguous(), None
+
+
+def gather_from_model(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """Every model rank's column block ``x`` (..., c) concatenated along the
+    last dim in model-rank order: (..., m·c). The backward keeps this rank's
+    block of the cotangent, which every model rank computes alike."""
+    return _GatherFromModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group: DataGroup) -> torch.Tensor:
+    """Σ over the model ranks of a partial result (a product whose
+    contraction dim is split); the backward passes the cotangent, which
+    every model rank computes alike, to each rank's part unchanged."""
+    return _SumToAll.apply(x, group)
+
+
 def all_reduce_grads(params: Iterable[torch.Tensor], group: DataGroup) -> None:
     """Sum every rank's gradients, in place: one all-reduce of all of them
     flattened into one buffer (per dtype). Parameters without a gradient
@@ -159,10 +225,10 @@ def all_reduce_int(value: int, group: DataGroup, op=dist.ReduceOp.SUM) -> int:
 
 
 def broadcast_ints(values: List[int], group: DataGroup) -> List[int]:
-    """Rank 0's ``values`` (int64) on every rank."""
+    """The group's first rank's ``values`` (int64) on every rank of it."""
     t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=group.device)
-    calls["broadcast"] += 1
-    dist.broadcast(t, src=0)
+    calls[f"{group.axis}.broadcast"] += 1
+    dist.broadcast(t, src=0 if group.pg is None else dist.get_global_rank(group.pg, 0), group=group.pg)
     return [int(v) for v in t.tolist()]
 
 
@@ -177,9 +243,10 @@ def tensors_digest(tensors: Iterable[torch.Tensor]) -> bytes:
 
 
 def assert_same_on_ranks(digest: bytes, group: DataGroup, what: str) -> None:
-    """Raise on every rank unless every rank's ``digest`` equals rank 0's:
-    rank 0's is broadcast, each rank compares, and a MAX all-reduce of the
-    mismatches lets all ranks raise together (none waits in a collective)."""
+    """Raise on every rank of the group unless every rank's ``digest``
+    equals its first rank's (rank 0 below): rank 0's is broadcast, each
+    rank compares, and a MAX all-reduce of the mismatches lets all ranks
+    raise together (none waits in a collective)."""
     words = [int.from_bytes(digest[i : i + 7], "little") for i in range(0, len(digest), 7)]
     differs = broadcast_ints(words, group) != words
     if all_reduce_int(differs, group, dist.ReduceOp.MAX):

@@ -1,40 +1,53 @@
-"""The data-parallel process group and batch placement.
+"""The process groups of the ("data", "model") grid, and batch placement.
 
 Port of ``speech_decoding_tpu/parallel/mesh.py``. JAX builds a ("data",
 "model") mesh over its devices and shards batches over "data". The port
-runs one process a device, as ``torchrun`` launches it, so the "data" axis
-is the ``torch.distributed`` process group itself: rank r holds rows
-[r·b, (r+1)·b) of every global batch of W·b rows, and parameters, BatchNorm
-statistics and optimizer state are replicated on every rank. The "model"
-axis (``parallel/sharding_rules.py``: parameters split over devices) is
-not ported.
+runs one process a device, as ``torchrun`` launches it, so each axis is a
+``torch.distributed`` process group:
 
-``DataGroup`` names the rank's place in the default process group and
-the rank's device; every data-parallel function of the port takes one
-(None: a single process, nothing synchronised).
+  * without a grid the "data" axis is the default process group: rank r
+    holds rows [r·b, (r+1)·b) of every global batch of W·b rows, and
+    parameters, BatchNorm statistics and optimizer state are replicated;
+  * ``make_grid({"data": d, "model": m})`` lays the W = d·m ranks out as
+    JAX's ``reshape(d, m)`` does: rank r has data index r // m and model
+    index r % m, so the model ranks of one data index are contiguous. Its
+    ``data`` group joins the d ranks of one model index (they hold the same
+    parameter blocks and different rows), its ``model`` group the m ranks
+    of one data index (the same rows, each its block of every split
+    parameter: ``parallel/sharding_rules.py``).
+
+``DataGroup`` names the rank's place on the "data" axis, the rank's device
+and the process group it spans (None: the default group); every
+data-parallel function of the port takes one (None: a single process,
+nothing synchronised). ``ModelGroup`` is the same record on the "model"
+axis.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Union
+from typing import ClassVar, Dict, Optional, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 @dataclass(frozen=True)
 class DataGroup:
-    """The "data" axis, the default process group: ``world`` ranks, this
-    one ``rank``, and its ``device``."""
+    """The "data" axis: ``world`` ranks, this one's ``rank`` among them, its
+    ``device``, and the process group ``pg`` they form (None: the default
+    group, every rank)."""
 
     world: int
     rank: int
     device: torch.device
+    pg: Optional[dist.ProcessGroup] = None
+    axis: ClassVar[str] = DATA_AXIS
 
     @property
     def is_primary(self) -> bool:
@@ -43,6 +56,21 @@ class DataGroup:
     def block(self, n_rows: int) -> slice:
         """This rank's contiguous block of a global batch of ``n_rows``."""
         return rank_block(n_rows, self.world, self.rank)
+
+
+class ModelGroup(DataGroup):
+    """The "model" axis: the ``world`` = m ranks that hold the same rows and
+    split the parameters column-wise, this one's model index ``rank``."""
+
+    axis: ClassVar[str] = MODEL_AXIS
+
+
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place on both axes of a ``make_grid`` layout."""
+
+    data: DataGroup
+    model: ModelGroup
 
 
 def rank_block(n_rows: int, world: int, rank: int) -> slice:
@@ -80,6 +108,27 @@ def data_group(device: Optional[Union[str, torch.device]] = None) -> DataGroup:
     return DataGroup(world=dist.get_world_size(), rank=dist.get_rank(), device=dev)
 
 
+def make_grid(mesh_shape: Optional[Dict[str, int]] = None,
+              device: Optional[Union[str, torch.device]] = None) -> Grid:
+    """The ("data", "model") grid over the initialized process group, from
+    JAX's ``tpu.mesh_shape`` dict (default: every rank on "data"). d·m must
+    equal the world size. Every rank creates every sub-group, in the same
+    order (gloo and NCCL hang otherwise), and keeps its two. ``device`` as
+    in ``data_group``."""
+    whole = data_group(device)
+    shape = dict(mesh_shape or {DATA_AXIS: whole.world})
+    unknown = set(shape) - {DATA_AXIS, MODEL_AXIS}
+    if unknown:
+        raise ValueError(f"mesh_shape names unknown axes {sorted(unknown)}")
+    d, m = int(shape.get(DATA_AXIS, 1)), int(shape.get(MODEL_AXIS, 1))
+    if d < 1 or m < 1 or d * m != whole.world:
+        raise ValueError(f"mesh {d}x{m} != {whole.world} processes")
+    data_pgs = [dist.new_group([i * m + j for i in range(d)]) for j in range(m)]
+    model_pgs = [dist.new_group([i * m + j for j in range(m)]) for i in range(d)]
+    i, j = divmod(whole.rank, m)
+    return Grid(data=DataGroup(d, i, whole.device, data_pgs[j]), model=ModelGroup(m, j, whole.device, model_pgs[i]))
+
+
 def current_group(device: Optional[Union[str, torch.device]] = None) -> Optional[DataGroup]:
     """``data_group(device)`` when a process group exists, else None."""
     if dist.is_available() and dist.is_initialized():
@@ -109,7 +158,8 @@ def put_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
 def shard_batch(batch: Dict, group: DataGroup, axis: int = 0) -> Dict[str, torch.Tensor]:
     """The rank's contiguous block of a global batch along ``axis`` (1 for
     scan groups stacked (k, B, ...), as JAX's ``_put_stacked`` shards them),
-    on the rank's device."""
+    on the rank's device. On a grid pass ``grid.data``: every model rank of
+    one data index gets the same rows."""
     blk = group.block(batch["X"].shape[axis])
     index = (slice(None),) * axis + (blk,)
     return put_batch({k: v[index] for k, v in batch.items()}, group.device)

@@ -28,6 +28,7 @@ from torch import nn
 
 from speech_decoding_tpu_torch.models.loss import CLIPLoss
 from speech_decoding_tpu_torch.parallel.collectives import assert_same_on_ranks, tensors_digest
+from speech_decoding_tpu_torch.parallel.mesh import Grid
 from speech_decoding_tpu_torch.utils.device import resolve_device
 
 
@@ -136,7 +137,11 @@ def create_train_state(encoder: nn.Module, init_temperature: float = 5.1, lr: fl
     temperature and build the optimizer over both. The encoder's weights are
     its own initialization (seeded by the generator it was built with).
     ``group`` (a ``parallel.DataGroup``): raises on every rank unless every
-    rank built the same state as rank 0."""
+    rank built the same state as rank 0. On a ``parallel.Grid`` (the encoder
+    partitioned first, so the optimizer holds the blocks) the ranks of each
+    data group, which hold the same blocks, are compared."""
+    if isinstance(group, Grid):
+        group = group.data
     dev = resolve_device(group.device if device is None and group is not None else device)
     encoder = encoder.to(dev)
     clip = CLIPLoss(init_temperature).to(dev)

@@ -37,11 +37,22 @@ parameters, statistics and Adam moments. The drop mask must be passed and
 be the same on every rank (the Trainer draws it from (seed, step)). The
 eval steps take no group: every rank evaluates the whole test batch, as
 JAX's multi-process eval does.
+
+A ``parallel.Grid`` (``make_grid``; the encoder split by
+``parallel.sharding_rules.partition_encoder``) is one step on the grid: the
+loss, the top-k and the gradient all-reduce run on its data axis, the
+encoder's split layers make their own model-axis collectives, and Adam
+updates each rank's blocks (elementwise, so it equals Adam on the whole
+parameters). A replicated parameter's graph runs after the gathers, so its
+gradient is the same on every model rank and needs no model-axis sum. The
+eval steps need no group on a grid either: every rank evaluates the whole
+test batch, and the encoder's split layers make their model-axis
+collectives (every rank of the grid calls the eval).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -52,11 +63,16 @@ from speech_decoding_tpu_torch.ops.retrieval import retrieval_metrics_kernel
 from speech_decoding_tpu_torch.ops.scaling import apply_scale_stats, gwilliams_collate
 from speech_decoding_tpu_torch.parallel.clip_sharded import accuracy_from_local_similarity, clip_loss_sharded
 from speech_decoding_tpu_torch.parallel.collectives import all_reduce_grads
-from speech_decoding_tpu_torch.parallel.mesh import DataGroup
+from speech_decoding_tpu_torch.parallel.mesh import DataGroup, Grid
 from speech_decoding_tpu_torch.training.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
+Group = Optional[Union[DataGroup, Grid]]
+
+
+def _data_axis(group: Group) -> Optional[DataGroup]:
+    return group.data if isinstance(group, Grid) else group
 
 
 def _maybe_collate(batch: Batch, collate: Optional[Dict]) -> torch.Tensor:
@@ -99,13 +115,14 @@ def _metrics(state: TrainState, logits: torch.Tensor, loss: torch.Tensor, group:
 
 
 def make_train_step(reduction: str = "mean", collate: Optional[Dict] = None, fused_blocks: bool = False,
-                    group: Optional[DataGroup] = None) -> Callable[..., Tuple[TrainState, Metrics]]:
+                    group: Group = None) -> Callable[..., Tuple[TrainState, Metrics]]:
     """``step(state, batch, generator=None, drop_mask=None) -> (state,
     metrics)``: one optimizer step, in place. Metrics are 0-dim tensors on
     the state's device (loss, top1, top10, and temp after the update).
     ``fused_blocks`` runs the ConvBlocks as K6 (same function); ``group``
-    makes it a data-parallel step over the ranks' blocks (module
-    docstring)."""
+    makes it a data-parallel step over the ranks' blocks, a ``Grid`` a step
+    on the grid (module docstring)."""
+    group = _data_axis(group)
 
     def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
                    drop_mask: Optional[torch.Tensor] = None):
@@ -122,7 +139,7 @@ def make_train_step(reduction: str = "mean", collate: Optional[Dict] = None, fus
 
 
 def make_train_step_scan(reduction: str = "mean", collate: Optional[Dict] = None, fused_blocks: bool = False,
-                         group: Optional[DataGroup] = None) -> Callable[..., Tuple[TrainState, Metrics]]:
+                         group: Group = None) -> Callable[..., Tuple[TrainState, Metrics]]:
     """``steps(state, batches, generator=None, drop_masks=None)``: k train
     steps over a stacked batch (leading axis k on every tensor; drop_masks
     (k, C)), the same as k calls of the single step (JAX runs them in one
@@ -144,11 +161,12 @@ def make_train_step_scan(reduction: str = "mean", collate: Optional[Dict] = None
 
 
 def make_train_forward_step(reduction: str = "mean", collate: Optional[Dict] = None,
-                            group: Optional[DataGroup] = None) -> Callable[..., Tuple[TrainState, Metrics]]:
+                            group: Group = None) -> Callable[..., Tuple[TrainState, Metrics]]:
     """Train-mode forward without a parameter update: batch-stat BN with the
     running statistics updated, spatial dropout, metrics — what the
     reference's non-final Brennan batches effectively do
     [ref: train.py:205-209]. ``group`` as in ``make_train_step``."""
+    group = _data_axis(group)
 
     def forward_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
                      drop_mask: Optional[torch.Tensor] = None):
