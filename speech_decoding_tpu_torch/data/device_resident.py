@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from speech_decoding_tpu_torch.utils.device import resolve_device
+from speech_decoding_tpu_torch.utils.profiling import DATA_GATHER, DATA_INDEX, annotate
 
 
 def _quantize_i16(stack: np.ndarray, channel_axis: int):
@@ -160,20 +161,21 @@ class DeviceResidentGwilliams:
         Gwilliams2022DatasetBase.sample_batch (one integers(len(keys)) draw
         per segment; key order matches, so ``choices`` from
         ``dataset.draw_choices`` selects identical sessions)."""
-        if choices is None:
-            choices = self.ds.draw_choices(rng, len(segment_ids))
-        rec_idx, word_idx = [], []
-        for i, choice in zip(segment_ids, choices):
-            i_in_task, task = self.ds.segment_to_task(int(i))
-            key = self.keys[int(choice)]
-            rec_idx.append(self.rec_index[(key, task)])
-            word_idx.append(i_in_task)
-        return {
-            "rec_idx": np.asarray(rec_idx, np.int32),
-            "word_idx": np.asarray(word_idx, np.int32),
-            "task_idx": self.seg_task_ids[segment_ids],
-            "y_onset": self.seg_y_onsets[segment_ids],
-        }
+        with annotate(DATA_INDEX):
+            if choices is None:
+                choices = self.ds.draw_choices(rng, len(segment_ids))
+            rec_idx, word_idx = [], []
+            for i, choice in zip(segment_ids, choices):
+                i_in_task, task = self.ds.segment_to_task(int(i))
+                key = self.keys[int(choice)]
+                rec_idx.append(self.rec_index[(key, task)])
+                word_idx.append(i_in_task)
+            return {
+                "rec_idx": np.asarray(rec_idx, np.int32),
+                "word_idx": np.asarray(word_idx, np.int32),
+                "task_idx": self.seg_task_ids[segment_ids],
+                "y_onset": self.seg_y_onsets[segment_ids],
+            }
 
     def _window(self, stack: torch.Tensor, rows: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         """stack[rows[b]] windowed at starts[b] over L samples: (B, L, C)
@@ -188,22 +190,23 @@ class DeviceResidentGwilliams:
         """Batch assembly on the device from the int32 indices of
         ``make_index_batch``: X, Y and scale_stats f32 on the device,
         subject_idxs int32 on the host."""
-        dev = self.device
-        rec = torch.from_numpy(np.asarray(idx["rec_idx"], np.int64)).to(dev)
-        word = torch.from_numpy(np.asarray(idx["word_idx"], np.int64)).to(dev)
-        task = torch.from_numpy(np.asarray(idx["task_idx"], np.int64)).to(dev)
-        y_on = torch.from_numpy(np.asarray(idx["y_onset"], np.int64)).to(dev)
-        X = self._window(self.X_stack, rec, self.onsets_stack[rec, word]).float()
-        Y = self._window(self.Y_stack, task, y_on).float()
-        if self.quantized:  # int16 storage: per-(array, channel) dequant
-            sx, sy = self.x_scale[rec], self.y_scale[task]
-            if self.channels_last:
-                X, Y = X * sx[:, None, :], Y * sy[:, None, :]
-            else:
-                X, Y = X * sx[:, :, None], Y * sy[:, :, None]
-        return {
-            "X": X.contiguous(),
-            "Y": Y.contiguous(),
-            "scale_stats": self.stats_stack[rec, word],
-            "subject_idxs": torch.from_numpy(self.subject_of_rec[np.asarray(idx["rec_idx"])]),
-        }
+        with annotate(DATA_GATHER):
+            dev = self.device
+            rec = torch.from_numpy(np.asarray(idx["rec_idx"], np.int64)).to(dev)
+            word = torch.from_numpy(np.asarray(idx["word_idx"], np.int64)).to(dev)
+            task = torch.from_numpy(np.asarray(idx["task_idx"], np.int64)).to(dev)
+            y_on = torch.from_numpy(np.asarray(idx["y_onset"], np.int64)).to(dev)
+            X = self._window(self.X_stack, rec, self.onsets_stack[rec, word]).float()
+            Y = self._window(self.Y_stack, task, y_on).float()
+            if self.quantized:  # int16 storage: per-(array, channel) dequant
+                sx, sy = self.x_scale[rec], self.y_scale[task]
+                if self.channels_last:
+                    X, Y = X * sx[:, None, :], Y * sy[:, None, :]
+                else:
+                    X, Y = X * sx[:, :, None], Y * sy[:, :, None]
+            return {
+                "X": X.contiguous(),
+                "Y": Y.contiguous(),
+                "scale_stats": self.stats_stack[rec, word],
+                "subject_idxs": torch.from_numpy(self.subject_of_rec[np.asarray(idx["rec_idx"])]),
+            }

@@ -29,6 +29,8 @@ from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from speech_decoding_tpu_torch.utils.profiling import LOOP_WAIT, annotate
+
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SRC_PATH = os.path.join(_REPO, "native", "segment_gather.cpp")
 BUILD_DIR = os.path.join(_REPO, "build", "native")
@@ -209,7 +211,7 @@ class Prefetcher:
                 finally:
                     put(self._done)
 
-        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread = threading.Thread(target=run, name="sd-prefetch", daemon=True)
         self._thread.start()
 
     def close(self) -> None:
@@ -227,7 +229,8 @@ class Prefetcher:
     def __iter__(self):
         try:
             while True:
-                item = self._q.get()
+                with annotate(LOOP_WAIT):
+                    item = self._q.get()
                 if item is self._done:
                     if self._err is not None:
                         raise self._err

@@ -65,6 +65,13 @@ from speech_decoding_tpu_torch.parallel.clip_sharded import accuracy_from_local_
 from speech_decoding_tpu_torch.parallel.collectives import all_reduce_grads
 from speech_decoding_tpu_torch.parallel.mesh import DataGroup, Grid
 from speech_decoding_tpu_torch.training.state import TrainState
+from speech_decoding_tpu_torch.utils.profiling import (
+    STEP,
+    STEP_BACKWARD,
+    STEP_FORWARD,
+    STEP_OPTIMIZER,
+    annotate,
+)
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -126,14 +133,20 @@ def make_train_step(reduction: str = "mean", collate: Optional[Dict] = None, fus
 
     def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
                    drop_mask: Optional[torch.Tensor] = None):
-        state.optimizer.zero_grad(set_to_none=True)
-        logits, loss = _train_forward(state, batch, collate, reduction, generator, drop_mask, fused_blocks, group)
-        loss.backward()
-        if group is not None:
-            all_reduce_grads([*state.encoder.parameters(), state.clip.temp], group)
-        state.optimizer.step()
-        state.step += 1
-        return state, _metrics(state, logits, loss, group)
+        with annotate(STEP):
+            state.optimizer.zero_grad(set_to_none=True)
+            with annotate(STEP_FORWARD):
+                logits, loss = _train_forward(state, batch, collate, reduction, generator, drop_mask, fused_blocks,
+                                              group)
+            with annotate(STEP_BACKWARD):
+                loss.backward()
+                if group is not None:
+                    all_reduce_grads([*state.encoder.parameters(), state.clip.temp], group)
+            with annotate(STEP_OPTIMIZER):
+                state.optimizer.step()
+            state.step += 1
+            metrics = _metrics(state, logits, loss, group)
+        return state, metrics
 
     return train_step
 

@@ -70,6 +70,7 @@ from speech_decoding_tpu_torch.training.steps import (
     make_train_step_scan,
 )
 from speech_decoding_tpu_torch.utils.logging import cprint
+from speech_decoding_tpu_torch.utils.profiling import LOOP_STACK, annotate
 
 
 class NoopLogger:
@@ -205,7 +206,9 @@ class Trainer:
             group.append(b)
             if len(group) == self.scan_steps:
                 stack = torch.stack if torch.is_tensor(group[0]["X"]) else np.stack
-                yield {k: stack([g[k] for g in group]) for k in group[0]}, len(group)
+                with annotate(LOOP_STACK):
+                    stacked = {k: stack([g[k] for g in group]) for k in group[0]}
+                yield stacked, len(group)
                 group = []
         for b in group:
             yield b, 0

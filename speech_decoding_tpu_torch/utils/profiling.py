@@ -3,20 +3,113 @@
 Port of ``speech_decoding_tpu/utils/profiling.py``: ``trace(log_dir)``
 records a ``torch.profiler`` trace (host ops, and the card's kernels and
 copies when CUDA is available) into ``log_dir``, readable by TensorBoard's
-profiler plugin or chrome://tracing; ``annotate(name)`` marks a named
-region on that timeline; ``StepTimer`` gives the step-time and
-items-per-second summary the Trainer and the tools report, with JAX's keys.
+profiler plugin or chrome://tracing. ``annotate(name)`` is the port's one
+span: free while no profiler records, and while one does, a
+``record_function`` range on the profiler's timeline and an entry in a
+bounded span log (``span_log()``) on the clock the profiler stamps its
+events with. The log carries the spans of every thread: the profiler
+records only the thread that started it. ``SPANS`` names the spans the
+port opens.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Iterator, List, NamedTuple, Optional
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# The port's spans (thread: where), read by port_bench/program_spans.py
+STEP = "sd.step"  # main: training/steps.py train_step, zero_grad to the metrics dict
+STEP_FORWARD = "sd.step.forward"  # main: collate, encoder and loss
+STEP_BACKWARD = "sd.step.backward"  # main: loss.backward() and, under a group, the gradient all-reduce
+STEP_OPTIMIZER = "sd.step.optimizer"  # main: the optimizer's step
+LOOP_WAIT = "sd.loop.wait"  # main: data/native_loader.py Prefetcher, the loop waiting for a batch
+LOOP_STACK = "sd.loop.stack"  # producer: training/trainer.py Trainer._grouped, stacking a scan group
+DATA_INDEX = "sd.data.index"  # producer: data/device_resident.py make_index_batch
+DATA_GATHER = "sd.data.gather"  # producer: data/device_resident.py gather
+SPANS = (STEP, STEP_FORWARD, STEP_BACKWARD, STEP_OPTIMIZER, LOOP_WAIT, LOOP_STACK, DATA_INDEX, DATA_GATHER)
+
+SPAN_LOG_MAXLEN = 100_000
+
+
+class Span(NamedTuple):
+    """One closed span: its name, its thread's name, and its start and end
+    in ``time.time_ns()`` nanoseconds (the profiler's event clock)."""
+
+    name: str
+    thread: str
+    start_ns: int
+    end_ns: int
+
+
+class SpanLog:
+    """Spans in the order they closed, at most ``maxlen``: once full, each
+    new span drops the oldest, and ``dropped`` counts them."""
+
+    def __init__(self, maxlen: int = SPAN_LOG_MAXLEN):
+        self._spans: collections.deque = collections.deque(maxlen=maxlen)
+        self._lock = threading.Lock()
+        self.dropped = 0
+
+    def add(self, span: Span) -> None:
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped += 1
+            self._spans.append(span)
+
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self.dropped = 0
+
+
+_LOG = SpanLog()
+_OFF = contextlib.nullcontext()
+
+
+def span_log() -> SpanLog:
+    """The process's span log: spans opened while a profiler recorded."""
+    return _LOG
+
+
+def clear_span_log() -> None:
+    _LOG.clear()
+
+
+class _Span:
+    __slots__ = ("_name", "_range", "_start")
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __enter__(self) -> None:
+        self._range = torch.profiler.record_function(self._name)
+        self._range.__enter__()
+        self._start = time.time_ns()
+
+    def __exit__(self, *exc) -> None:
+        end = time.time_ns()
+        self._range.__exit__(*exc)
+        _LOG.add(Span(self._name, threading.current_thread().name, self._start, end))
+
+
+def annotate(name: str):
+    """A named span around a block. While no profiler records, a shared
+    null context (no ``record_function``, no clock read); while one does,
+    a ``record_function`` range and an entry in ``span_log()``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
 
 
 @contextlib.contextmanager
@@ -35,44 +128,3 @@ def trace(log_dir: Optional[str]) -> Iterator[Optional[torch.profiler.profile]]:
     with torch.profiler.profile(activities=activities,
                                 on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
         yield prof
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region in the profiler timeline (``record_function``)."""
-    with torch.profiler.record_function(name):
-        yield
-
-
-class StepTimer:
-    """Wall-clock step timer with throughput summary. Time work on a card
-    up to a synchronisation (or a host read of its result): the host clock
-    alone times the enqueue."""
-
-    def __init__(self):
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, items: int = 1) -> float:
-        """Seconds since ``start``, recorded. ``items`` is kept for JAX's
-        signature; ``summary`` takes the count."""
-        if self._t0 is None:
-            raise RuntimeError("StepTimer.stop before start")
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        return dt
-
-    def summary(self, items_per_step: int = 1) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "steps": len(arr),
-            "mean_step_s": float(arr.mean()),
-            "p50_step_s": float(np.percentile(arr, 50)),
-            "p95_step_s": float(np.percentile(arr, 95)),
-            "items_per_sec": float(items_per_step * len(arr) / arr.sum()),
-        }
