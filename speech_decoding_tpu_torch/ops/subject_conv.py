@@ -37,6 +37,13 @@ over the ids) and copied to the card from a pinned ring without a wait, so
 a later change of the host array does not reach the launch (the serving
 encode and the train step pass them so). Ids on the card are checked there,
 which costs one wait for the card. The backward reuses the checked copy.
+
+While the current stream captures a CUDA graph (``training/steps.py``'s
+replayed step), K1 takes its ids on the card, from a buffer the caller
+fills and checks before each replay: it neither checks them (a wait cannot
+be captured) nor stages host ids (the captured copy would read the same
+host address at every replay), and ``packed_weights`` neither reads nor
+writes its cache (the image is made by the captured pack launch).
 """
 
 from __future__ import annotations
@@ -112,9 +119,11 @@ def packed_weights(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
     the last image of each direction is kept while the same tensor object
     has the same ``_version``, pointer, shape and dtype (an in-place update
     or a new tensor packs again; inference tensors, which keep no version,
-    always pack). On the card one launch of the pack kernel (counted in
-    ``packed_weights.packs``); on the CPU the plain version."""
-    hit = _packs.get(transposed)
+    always pack; under graph capture the cache is left alone). On the card
+    one launch of the pack kernel (counted in ``packed_weights.packs``); on
+    the CPU the plain version."""
+    capturing = w.is_cuda and torch.cuda.is_current_stream_capturing()
+    hit = None if capturing else _packs.get(transposed)
     inference = w.is_inference()
     if (hit is not None and not inference and hit[0]() is w and hit[1] == w._version
             and hit[2:5] == (w.data_ptr(), w.shape, w.dtype)):
@@ -134,7 +143,7 @@ def packed_weights(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
         packed_weights.packs += 1
     else:
         img = pack_weights(w, transposed)
-    if not inference:
+    if not (inference or capturing):
         _packs[transposed] = (weakref.ref(w), w._version, w.data_ptr(), w.shape, w.dtype, img)
     return img
 
@@ -159,7 +168,7 @@ def _check_ids(subject_idxs: torch.Tensor, num_subjects: int) -> None:
         )
 
 
-def _check_host_ids(ids: np.ndarray, num_subjects: int) -> None:
+def check_host_ids(ids: np.ndarray, num_subjects: int) -> None:
     # one pass: a negative id reads as a huge unsigned one
     if ids.size and bool((ids.view(f"u{ids.itemsize}") >= num_subjects).any()):
         raise ValueError(f"subject ids must lie in [0, {num_subjects}), got [{ids.min()}, {ids.max()}]")
@@ -290,7 +299,8 @@ class _SubjectMatmul(torch.autograd.Function):
 def subject_matmul(x: torch.Tensor, w: torch.Tensor, subject_idxs: torch.Tensor) -> torch.Tensor:
     """out[b] = x[b] @ w[subject_idxs[b]]: x (B, T, Din), w (S, Din, Dout),
     subject_idxs (B,), on x's device or on the host. Differentiable in x and
-    w. Raises ValueError for an id outside [0, S)."""
+    w. Raises ValueError for an id outside [0, S) (under graph capture the
+    caller checks them: module docstring)."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[2] != w.shape[1]:
         raise ValueError(f"subject_matmul shapes: x (B, T, Din), w (S, Din, Dout); got {tuple(x.shape)}, {tuple(w.shape)}")
     if subject_idxs.shape != (x.shape[0],):
@@ -298,9 +308,12 @@ def subject_matmul(x: torch.Tensor, w: torch.Tensor, subject_idxs: torch.Tensor)
     if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"subject_matmul runs on CUDA or CPU tensors, got {x.device}")
     host_ids = 0
+    capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
     if subject_idxs.device.type == "cpu":
+        if capturing:
+            raise ValueError("under CUDA graph capture subject_matmul takes its ids on the card, checked by the caller")
         ids = subject_idxs.numpy()
-        _check_host_ids(ids, w.shape[0])
+        check_host_ids(ids, w.shape[0])
         sidx = subject_idxs
         if x.is_cuda:  # filled by the launch from the pinned ring (by a plain copy if nothing launches)
             if x.numel() and w.shape[2] and ids.size <= _PinnedIds.SEGMENT:
@@ -310,7 +323,8 @@ def subject_matmul(x: torch.Tensor, w: torch.Tensor, subject_idxs: torch.Tensor)
             else:
                 sidx = subject_idxs.to(x.device, torch.int32)
     else:
-        _check_ids(subject_idxs, w.shape[0])
+        if not capturing:
+            _check_ids(subject_idxs, w.shape[0])
         sidx = subject_idxs.to(x.device)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _SubjectMatmul.apply(x, w, sidx, host_ids)

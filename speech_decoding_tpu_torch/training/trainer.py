@@ -125,8 +125,7 @@ class Trainer:
         fused = bool(args.select("tpu.fused_train_blocks", False))
         self.train_step = make_train_step(args.reduction, collate, fused_blocks=fused, group=group)
         self.scan_steps = int(args.select("tpu.scan_steps", 1))
-        self.train_step_scan = (make_train_step_scan(args.reduction, collate, fused_blocks=fused, group=group)
-                                if self.scan_steps > 1 else None)
+        self.train_step_scan = make_train_step_scan(self.train_step) if self.scan_steps > 1 else None
         self.eval_step = make_eval_step(args.reduction, collate)
         # large test sets evaluate in fixed-size forward chunks (bounded
         # activation memory); 0 disables

@@ -29,11 +29,13 @@ STEP = "sd.step"  # main: training/steps.py train_step, zero_grad to the metrics
 STEP_FORWARD = "sd.step.forward"  # main: collate, encoder and loss
 STEP_BACKWARD = "sd.step.backward"  # main: loss.backward() and, under a group, the gradient all-reduce
 STEP_OPTIMIZER = "sd.step.optimizer"  # main: the optimizer's step
+STEP_GRAPH = "sd.step.graph"  # main: a replayed step's input copies and replay (no forward or backward span then)
 LOOP_WAIT = "sd.loop.wait"  # main: data/native_loader.py Prefetcher, the loop waiting for a batch
 LOOP_STACK = "sd.loop.stack"  # producer: training/trainer.py Trainer._grouped, stacking a scan group
 DATA_INDEX = "sd.data.index"  # producer: data/device_resident.py make_index_batch
 DATA_GATHER = "sd.data.gather"  # producer: data/device_resident.py gather
-SPANS = (STEP, STEP_FORWARD, STEP_BACKWARD, STEP_OPTIMIZER, LOOP_WAIT, LOOP_STACK, DATA_INDEX, DATA_GATHER)
+SPANS = (STEP, STEP_FORWARD, STEP_BACKWARD, STEP_OPTIMIZER, STEP_GRAPH, LOOP_WAIT, LOOP_STACK, DATA_INDEX,
+         DATA_GATHER)
 
 SPAN_LOG_MAXLEN = 100_000
 

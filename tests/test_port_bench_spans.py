@@ -1,5 +1,5 @@
 """The benchmark's readers of the program's spans (``port_bench/program_spans.py``
-and the eight ``port_bench/metrics/*`` files that use it) on a hand-made
+and the nine ``port_bench/metrics/*`` files that use it) on a hand-made
 trace and span log: each reader's arithmetic, clipping at the window's
 edges, the clock check against the trace's host events, and the cases in
 which every reader leaves its metric out."""
@@ -20,6 +20,7 @@ from speech_decoding_tpu_torch.utils.profiling import Span, SpanLog  # noqa: E40
 CELL = "gw208-train-b256-resident"
 READERS = ["host_step_ms.train", "host_forward_ms.train", "host_backward_ms.train", "host_optimizer_ms.train",
            "idle_in_step_share.train", "idle_in_wait_share.train", "stack_ms.train", "data_ms.train"]
+GRAPH_READER = "graph_step_share.train"  # the share of steps replayed from a CUDA graph
 
 # µs; the window is 100 ms, the device busy 50 ms of it
 T0, T1 = 1_000_000, 1_100_000
@@ -145,17 +146,50 @@ def test_no_idle_share_without_device_operations(monkeypatch):
     assert got["host_step_ms.train"] == pytest.approx(WANT["host_step_ms.train"], rel=1e-12)
 
 
+@pytest.mark.parametrize("graphed, want", [((1_025_000, 1_080_000), 100.0), ((1_080_000,), 50.0), ((), 0.0)])
+def test_the_graph_step_share(monkeypatch, graphed, want):
+    """Of the two steps that start in the window, those holding an
+    ``sd.step.graph`` (the step opened before the window holds one too, and
+    is not counted)."""
+    spans = SPANS + [("sd.step.graph", MAIN, 990_500, 1_000_500)]
+    spans += [("sd.step.graph", MAIN, s + 500, s + 5_000) for s in graphed]
+    ctx, log = _ctx(spans)
+    monkeypatch.setattr(profiling, "_LOG", log)
+    assert cells.metric_reader(GRAPH_READER)(ctx) == want
+    # the other readers are unmoved by the graph's spans
+    assert _read(ctx, log, monkeypatch) == pytest.approx(WANT, rel=1e-12)
+
+
+def test_no_graph_step_share_where_nothing_can_replay(monkeypatch):
+    """None without device operations, without a trace or a span log, and
+    from a program that declares no ``sd.step.graph`` (the parent of the
+    graphed step)."""
+    spans = SPANS + [("sd.step.graph", MAIN, 1_025_500, 1_030_000)]
+    read = cells.metric_reader(GRAPH_READER)
+    ctx, log = _ctx(spans)
+    monkeypatch.setattr(profiling, "_LOG", log)
+    assert read(ctx) == 50.0
+    assert read(SimpleNamespace(trace=None)) is None
+    assert read(_ctx(spans, device=False)[0]) is None
+    monkeypatch.setattr(profiling, "_LOG", SpanLog())
+    assert read(ctx) is None
+    monkeypatch.setattr(profiling, "_LOG", log)
+    monkeypatch.setattr(profiling, "SPANS", tuple(n for n in profiling.SPANS if n != "sd.step.graph"))
+    assert read(ctx) is None
+
+
 def test_the_readers_read_the_programs_spans():
     """Each span the program opens is read by a metric, and every metric of
     the spans is declared for the training cell."""
     read = set()
-    for n in READERS:
+    for n in READERS + [GRAPH_READER]:
         with open(os.path.join(cells.ROOT, "port_bench", "metrics", f"{n}.py")) as f:
             read |= set(re.findall(r'"(sd\.[a-z.]+)"', f.read()))
     assert read == set(profiling.SPANS) and program_spans.STEP == profiling.STEP
     with open(os.path.join(cells.ROOT, "BENCHMARK.json")) as f:
         per_layer = {m["name"]: m for m in json.load(f)["per_layer"]}
-    for n in READERS:
+    for n in READERS + [GRAPH_READER]:
         m = per_layer[n]
         assert (m["source"], m["moves"], m["workloads"]) == ("program_span", "train_segments_per_s", [CELL]), n
-    assert [m["name"] for m in cells.Cell(CELL).per_layer][-8:] == READERS
+    assert (per_layer[GRAPH_READER]["unit"], per_layer[GRAPH_READER]["layer"]) == ("%", "train step")
+    assert [m["name"] for m in cells.Cell(CELL).per_layer][-9:] == READERS + [GRAPH_READER]

@@ -111,7 +111,7 @@ def test_the_span_log_drops_the_oldest_and_counts_them(tmp_path, monkeypatch):
 
 
 def test_the_span_table():
-    assert len(set(profiling.SPANS)) == len(profiling.SPANS) == 8
+    assert len(set(profiling.SPANS)) == len(profiling.SPANS) == 9
     assert all(n.startswith("sd.") for n in profiling.SPANS)
 
 
@@ -149,6 +149,7 @@ def test_the_trainer_epoch_opens_its_spans(tmp_path, log):
     for part in (profiling.STEP_FORWARD, profiling.STEP_BACKWARD, profiling.STEP_OPTIMIZER):
         assert len(by[part]) == 5
         assert all(any(_within(s, step) for step in by[profiling.STEP]) for s in by[part]), part
+    assert by[profiling.STEP_GRAPH] == []  # CPU tensors: every step eager
     assert [s.thread for s in by[profiling.LOOP_STACK]] == ["sd-prefetch"] * 2
     assert by[profiling.LOOP_WAIT] and {s.thread for s in by[profiling.LOOP_WAIT]} == {main}
 

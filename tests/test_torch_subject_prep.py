@@ -147,8 +147,8 @@ def test_host_ids_checked_without_a_device(bad, dtype):
     """Host ids outside [0, S) raise before anything reaches a device."""
     ids = torch.tensor([0, bad, 1], dtype=dtype)
     with pytest.raises(ValueError, match=r"subject ids must lie in \[0, 4\)"):
-        sc._check_host_ids(ids.numpy(), 4)
+        sc.check_host_ids(ids.numpy(), 4)
     with pytest.raises(ValueError, match="subject ids"):
         sc.subject_matmul(torch.zeros(3, 2, 8), torch.zeros(4, 8, 8), ids)
-    sc._check_host_ids(np.array([0, 3, 3]), 4)
-    sc._check_host_ids(np.array([], np.int32), 4)
+    sc.check_host_ids(np.array([0, 3, 3]), 4)
+    sc.check_host_ids(np.array([], np.int32), 4)

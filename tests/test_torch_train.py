@@ -240,7 +240,7 @@ def test_scan_equals_single_steps():
         a, m = single(a, _port_batch(bt), drop_mask=masks[i])
         ms.append(m)
     stacked = {k: _t(np.stack([bt[k] for bt in bs])) for k in bs[0]}
-    b, mk = make_train_step_scan(collate=COLLATE)(b, stacked, drop_masks=masks)
+    b, mk = make_train_step_scan(make_train_step(collate=COLLATE))(b, stacked, drop_masks=masks)
     assert mk["loss"].shape == (3,) and b.step == a.step == 3
     for k in ms[0]:
         np.testing.assert_array_equal(mk[k].numpy(), torch.stack([m[k] for m in ms]).numpy())
