@@ -25,9 +25,9 @@ from typing import Dict, List
 
 import torch
 
-from port_bench import cells, check, reference, world
+from port_bench import cells, check, program_spans, reference, world
 from port_bench.clock import log
-from port_bench.trace import Trace, maybe_profile, span
+from port_bench.trace import Trace, gc_pauses, maybe_profile, span
 
 
 def _args(cfg: Dict, traffic: Dict, seed: int, extra: List[str]):
@@ -70,6 +70,14 @@ def _first_grad(trainer) -> Dict[str, torch.Tensor]:
         m = adam.state.get(p, {}).get("exp_avg")
         out[n] = torch.zeros(p.shape) if m is None else m.detach().float().cpu() / (1 - check.ADAM_B1)
     return out
+
+
+def memory_peak(device: torch.device) -> int:
+    """The caching allocator's reserved peak since its last reset: every
+    cached block and every CUDA graph's pool, what decides whether the job
+    fits on the card. A graph's replay allocates nothing, so the allocated
+    peak misses its pool."""
+    return torch.cuda.max_memory_reserved(device)
 
 
 class FirstSteps:
@@ -150,7 +158,7 @@ def run(cfg: Dict, traffic: Dict, seed: int, seconds: float, trace: bool, device
         trainer.run_epoch(1 + e, feed.epoch(1 + e, n_batches=k), None)
     if cuda:
         torch.cuda.synchronize(device)
-        setup_peak = torch.cuda.max_memory_allocated(device)
+        setup_peak = memory_peak(device)
         torch.cuda.reset_peak_memory_stats(device)
     setup_s = time.perf_counter() - t_start
     log("set-up done")
@@ -158,7 +166,7 @@ def run(cfg: Dict, traffic: Dict, seed: int, seconds: float, trace: bool, device
     # the window: one epoch until the deadline
     steps = [0]
     losses = []
-    with maybe_profile(trace, device.type) as prof, span("window"):
+    with maybe_profile(trace, device.type) as prof, gc_pauses(trace) as pauses, span("window"):
         t0 = time.perf_counter()
         if seconds > 0:
             with span("run_epoch"):
@@ -169,8 +177,8 @@ def run(cfg: Dict, traffic: Dict, seed: int, seconds: float, trace: bool, device
         t1 = time.perf_counter()
     window_s = max(t1 - t0, 1e-9)
     log("window done")
-    window_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    tr = Trace(prof) if prof is not None else None
+    window_peak = memory_peak(device) if cuda else 0
+    tr = Trace(prof, step=program_spans.STEP, pauses=pauses) if prof is not None else None
     segments = steps[0] * B
     failed = 0 if all(math.isfinite(x) for x in losses) else steps[0]
 

@@ -84,7 +84,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         tr = out["trace"]
         dev_info["busy_s"] = tr.busy_s
         dev_info["window_s"] = tr.window_s
-        result["breakdown"] = {"device_ops": tr.top_device_ops(10), "idle_gaps": tr.idle_gaps(10)}
+        if tr.whole:
+            result["breakdown"] = {"device_ops": tr.top_device_ops(10), "idle_gaps": tr.idle_gaps(10)}
+        # where the trace lost device records, its device-side readings are left out
+        result["trace_lost"] = tr.lost
     result["checks"] = checks
     return result, out
 

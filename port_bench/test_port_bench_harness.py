@@ -221,7 +221,8 @@ def test_the_trace_names_its_metrics():
     result, _ = tiny_run(seconds=1.0, trace=True)
     assert "mfu.train" in result["metrics"]
     assert list(result)[-1] == "checks"
-    assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+    # a breakdown is read only from device records, which a CPU run has none of
+    assert "breakdown" not in result and result["trace_lost"] == []
 
 
 def test_the_import_rule():
