@@ -16,11 +16,14 @@ across unchanged:
   * the per-subject layer goes through ``ops.subject_conv.subject_matmul``
     (K1, forward and backward), the hand-written kernel for CUDA tensors (its
     plain version on the CPU);
-  * every k=3 conv is ``TapConv``, the JAX ``_gemm_conv`` custom VJP: tap
-    GEMMs forward, the mirrored shifted-slice sum for dx, and dW through
-    ``ops.tap_conv.tap_conv_dw`` (K2); under ``conv_impl="pallas_taps"`` it
-    is ``ops.tap_conv.PallasTapConv`` instead: K5 forward and for dx, K2 for
-    dW;
+  * every k=3 conv is ``TapConv``, the JAX ``_gemm_conv`` custom VJP, dW
+    through ``ops.tap_conv.tap_conv_dw`` (K2). On the card its forward (the
+    bias folded in) and its dx each add the three taps inside cuBLAS: the
+    centre tap over the flat rows, the shifted ones by strided-batched GEMMs
+    with beta = 1 into row-offset views, with no pad, copy or add; on the
+    CPU it runs JAX's shifted-slice sums. Under ``conv_impl="pallas_taps"``
+    it is ``ops.tap_conv.PallasTapConv`` instead: K5 forward and for dx, K2
+    for dW;
   * train mode normalizes with batch statistics and updates the running
     ones in place (torch.nn.BatchNorm1d semantics), and applies one spatial
     dropout mask to the whole batch; under a data-parallel ``group`` the
@@ -184,7 +187,8 @@ class TorchBatchNorm(nn.Module):
 
 def _conv_taps(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
     """y[t] = Σ_j x[t + (j−1)·d] @ W_j: three shifted full-width GEMMs in x's
-    dtype, zero padding at the edges. x (B, T, Cin); w (3, Cin, Cout)."""
+    dtype, zero padding at the edges. x (B, T, Cin); w (3, Cin, Cout). The
+    plain version, and ``TapConv``'s route on the CPU."""
     B, T, Cin = x.shape
     xp = Fn.pad(x, (0, 0, d, d))
     y = None
@@ -194,41 +198,102 @@ def _conv_taps(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
     return y
 
 
+def _conv_taps_dx(g: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+    """dx = Σ_j shift_{-j}(g @ W_jᵀ): the mirrored shifted-slice sum in g's
+    dtype. g (B, T, Cout); w (3, Cin, Cout). The plain version, and
+    ``TapConv``'s route on the CPU."""
+    B, T, _ = g.shape
+    gf = g.reshape(B * T, -1)
+    dx = None
+    for j in range(3):
+        hj = Fn.pad((gf @ w[j].T).reshape(B, T, -1), (0, 0, d, d))
+        dxj = hj[:, 2 * d - j * d : 2 * d - j * d + T]
+        dx = dxj if dx is None else dx + dxj
+    return dx
+
+
+def _conv_taps_accum(x: torch.Tensor, w: torch.Tensor, d: int,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``_conv_taps`` (plus ``bias``) with the taps accumulated inside the
+    GEMMs, ``TapConv``'s route on the card: the centre tap over the flat
+    rows with the bias folded in, then each shifted tap added (beta = 1) by a
+    strided-batched GEMM into the rows of y it reaches, one recording a
+    batch, its weight expanded with batch stride 0. No pad, copy or
+    elementwise add: three GEMM launches, each rounding once to x's dtype
+    (f32 accumulation within a launch). A dilation ≥ T leaves the centre
+    tap alone."""
+    B, T, Cin = x.shape
+    x = x.contiguous()
+    xf = x.view(B * T, Cin)
+    y = (xf @ w[1] if bias is None else torch.addmm(bias, xf, w[1])).view(B, T, -1)
+    if d < T:
+        y[:, d:].baddbmm_(x[:, : T - d], w[0].expand(B, -1, -1))
+        y[:, : T - d].baddbmm_(x[:, d:], w[2].expand(B, -1, -1))
+    return y
+
+
+def _conv_taps_dx_accum(g: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+    """``_conv_taps_dx`` the same way: dx[s] = g[s+d] W_0ᵀ + g[s] W_1ᵀ +
+    g[s−d] W_2ᵀ, the centre tap over the flat rows, the shifted ones added
+    into row-offset views of dx. Three GEMM launches."""
+    B, T, Cout = g.shape
+    g = g.contiguous()
+    dx = (g.view(B * T, Cout) @ w[1].T).view(B, T, -1)
+    if d < T:
+        dx[:, : T - d].baddbmm_(g[:, d:], w[0].T.expand(B, -1, -1))
+        dx[:, d:].baddbmm_(g[:, : T - d], w[2].T.expand(B, -1, -1))
+    return dx
+
+
+def _accumulates(t: torch.Tensor) -> bool:
+    """Whether ``TapConv`` takes the accumulated route for ``t``: on the card."""
+    return t.is_cuda
+
+
 class TapConv(torch.autograd.Function):
     """The dilated k=3 'SAME' conv with the JAX ``_gemm_conv`` custom VJP
-    (``models/brain_encoder.py:162-228`` of the JAX package):
+    (``models/brain_encoder.py:162-228`` of the JAX package), plus an
+    optional bias (broadcast over the last dim):
       dx  = Σ_j shift_{-j}(g @ W_jᵀ), GEMMs in the primal dtype;
-      dW  = ``tap_conv_dw(x, g, d)`` (K2 on the card), cast to g's dtype."""
+      dW  = ``tap_conv_dw(x, g, d)`` (K2 on the card), cast to g's dtype;
+      db  = g summed over (B, T).
+    On the card the taps accumulate inside the GEMMs (``_conv_taps_accum``,
+    ``_conv_taps_dx_accum``); on the CPU it runs the shifted-slice sums of
+    JAX's function (``_conv_taps``, ``_conv_taps_dx``) and adds the bias
+    after them."""
 
     @staticmethod
-    def forward(ctx, x, w, dilation: int):
+    def forward(ctx, x, w, dilation: int, bias=None):
         ctx.save_for_backward(x, w)
         ctx.dilation = dilation
-        return _conv_taps(x, w, dilation)
+        ctx.has_bias = bias is not None
+        if _accumulates(x):
+            return _conv_taps_accum(x, w, dilation, bias)
+        y = _conv_taps(x, w, dilation)
+        return y if bias is None else y + bias
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         d = ctx.dilation
-        B, T, Cin = x.shape
-        dx = dw = None
+        g = g.contiguous()
+        dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            gf = g.reshape(B * T, -1)
-            for j in range(3):
-                hj = Fn.pad((gf @ w[j].T).reshape(B, T, Cin), (0, 0, d, d))
-                dxj = hj[:, 2 * d - j * d : 2 * d - j * d + T]
-                dx = dxj if dx is None else dx + dxj
+            dx = (_conv_taps_dx_accum if _accumulates(g) else _conv_taps_dx)(g, w, d)
         if ctx.needs_input_grad[1]:
-            dw = tap_conv_dw(x.contiguous(), g.contiguous(), d).to(g.dtype)
-        return dx, dw, None
+            dw = tap_conv_dw(x.contiguous(), g, d).to(g.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[3]:
+            db = g.sum(dim=(0, 1))
+        return dx, dw, None, db
 
 
 class Conv1d(nn.Module):
     """1-D conv in (B, T, C) layout, torch-default init, 'SAME' padding:
-    k=1 is one flat (B·T, Cin) GEMM, k=3 is ``TapConv`` (three shifted
-    full-width GEMMs, dW through K2), or ``PallasTapConv`` (K5, dW through
-    K2) when ``impl`` is "pallas_taps". The encoder has no other kernel size,
-    and K2 and K5 compute exactly three taps, so others raise ValueError.
+    k=1 is one flat (B·T, Cin) GEMM, k=3 is ``TapConv`` (three tap GEMMs,
+    the bias folded in where the kernel is whole; dW through K2), or
+    ``PallasTapConv`` (K5, dW through K2) when ``impl`` is "pallas_taps".
+    The encoder has no other kernel size, and K2 and K5 compute exactly
+    three taps, so others raise ValueError.
     With a ``model_group`` the kernel is this rank's column block (module
     docstring)."""
 
@@ -267,6 +332,8 @@ class Conv1d(nn.Module):
             y = (x.reshape(B * T, Cin) @ w[0]).reshape(B, T, -1)
         elif self.impl == "pallas_taps":
             y = PallasTapConv.apply(x.contiguous(), w.contiguous(), self.dilation)
+        elif mg is None:
+            return TapConv.apply(x, w, self.dilation, self.bias.to(dt))
         else:
             y = TapConv.apply(x, w, self.dilation)
         if mg is not None:

@@ -7,8 +7,10 @@ the encoder's opt-in ``conv_impl="pallas_taps"``):
     y[b, t] = Σ_j x[b, t+(j−1)d] @ W_j,  j = 0, 1, 2,
 
 zero padding at each recording's edges, f32 accumulation of all three taps
-and one cast to x's dtype (the ``gemm`` path's ``TapConv`` rounds each tap's
-product to x's dtype instead, so the two differ at bf16 rounding).
+and one cast to x's dtype (the ``gemm`` path's ``TapConv`` adds the taps
+inside cuBLAS on the card, one GEMM a tap, rounding to x's dtype after
+each, and on the CPU rounds each tap's product and each sum; so the paths
+differ at bf16 rounding).
 ``PallasTapConv`` is the JAX ``pallas_tap_conv`` custom VJP: dx is K5 on the
 tap-reversed, transposed weights (``tap_conv_transposed``), dW is K2. Like the JAX kernel, K5 takes
 0 < d < T only.
