@@ -6,7 +6,7 @@
 What it does, in order (one JSON object per line on stdout):
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. builds the six hand-written CUDA kernel libraries (seven kernels: K7
+  2. builds the seven hand-written CUDA kernel libraries (eight kernels: K7
      shares K6's source) from
      ``speech_decoding_tpu_torch/csrc`` with ``nvcc`` (one process per source,
      all started together) and times it;
@@ -166,6 +166,14 @@ What it does, in order (one JSON object per line on stdout):
      wgmma pair, f31_tile and f31 timed by CUDA events), re-emitted as one
      ``tool`` line each with the four on the device alone, K7's plain time,
      bound and f31's waits on its ready counters;
+  12b. BN, the module path's train-mode BatchNorm + GELU:
+     ``speech_decoding_tpu_torch.tools.bench_batchnorm_gelu`` at the
+     benchmark cell's shape (B=256, T=360, C=320), with and without the
+     residual input (h, the moved running statistics, dy, the skip's
+     gradient, dscale and dbias against the plain version at the card
+     tests' tolerances, raising past one; then ms by CUDA events and on the
+     device, each kernel apart, beside the bytes' bound and the plain
+     version's eager chain), one ``tool`` line with its launches;
   13. the training loop, each path with every counter set to 0 just before
      and read just after: ``trainer``, the port's ``tools/scale_run`` at the
      flagship (4 epochs of 100 updates over a device-resident pool of 512 +
@@ -243,7 +251,7 @@ What it does, in order (one JSON object per line on stdout):
   20. ``tools.ab_int8_retrieval`` once: 4,096 flagship candidates
      (D = 368,640) and a B=64 query batch, the port's chunked bf16 upcast
      against the whole-bank upcast, int8 × int8 → int32 chunks and f32;
-  14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, each with its
+  14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, BN, each with its
      launches by path and device ms; K7 with its body, its bitwise partner
      and its tap3 route), the card line again, and last ``{"ok": true,
      "device": {...}}``.
@@ -691,7 +699,8 @@ def cli_phase(seed: int, reset_counts, read_counts, expect) -> dict:
             steps, evals = EPOCHS * UPDATES, EPOCHS
             # the module step replays its graph from its second call on (one batch size)
             launched = launched_steps(steps, made)
-            want = expect(subject_matmul=2 * launched + evals, tap_conv_dw=15 * launched, retrieval_ranks=evals)
+            want = expect(subject_matmul=2 * launched + evals, tap_conv_dw=15 * launched, retrieval_ranks=evals,
+                          batchnorm_gelu=BN_STEP * launched)
             if (launched != 2 or paths[name] != want
                     or not all(np.isfinite([h[k] for h in hist for k in ("train_loss", "test_loss")]))):
                 raise AssertionError(f"{name}: launches {paths[name]} in {launched} launched steps, expected {want}; "
@@ -828,15 +837,16 @@ DP_TRAINER_STEPS = 12
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by name (K6 one per stage, K7
-    its own), of this process."""
+    its own, BN's kernels all under one), of this process."""
     from speech_decoding_tpu_torch.ops import conv_block_train as cbt
+    from speech_decoding_tpu_torch.ops.batchnorm_gelu import bn_gelu_train
     from speech_decoding_tpu_torch.ops.conv_block import conv_block_fused
     from speech_decoding_tpu_torch.ops.retrieval import retrieval_ranks
     from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
     from speech_decoding_tpu_torch.ops.tap_conv import tap_conv, tap_conv_dw
 
     return {"subject_matmul": subject_matmul, "conv_block_fused": conv_block_fused, "tap_conv_dw": tap_conv_dw,
-            "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv,
+            "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv, "batchnorm_gelu": bn_gelu_train,
             **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()},
             **{f"conv_block_train.{name}_tile": fn for name, fn in cbt.TILE.items()},
             "conv_block_train.F31": cbt.f31, "conv_block_train.F31_tile": cbt.f31_tile}
@@ -877,7 +887,13 @@ def made_train_steps():
 # from these records, since a replay launches nothing from the host
 KERNEL_RECORDS = {"subject_matmul": re.compile(r"\bsubject_matmul_(wg|tc|f32)_kernel"),
                   "tap_conv_dw": re.compile(r"\btap_conv_dw_(bf16|f32)_kernel"),
-                  "tap_conv": re.compile(r"\btap_conv_bf16_kernel")}
+                  "tap_conv": re.compile(r"\btap_conv_bf16_kernel"),
+                  "batchnorm_gelu": re.compile(r"\bbngelu_\w+_kernel")}
+
+# BN's kernels a module-path bf16 train step with no group launches: ten
+# layers (two a ConvBlock), three kernels forward and three back; with remat
+# the forward runs again in the backward's recomputation
+BN_STEP, BN_REMAT_STEP = 60, 90
 
 
 def _reset_counts() -> None:
@@ -1666,9 +1682,12 @@ def memory_scaling_phase(expect) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    per_step = {"gemm_pdw": (expect(subject_matmul=2, tap_conv_dw=15), expect(subject_matmul=2, tap_conv_dw=15)),
-                "pallas_taps": (expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30),
-                                expect(subject_matmul=2, tap_conv_dw=15, tap_conv=45))}
+    # one process (BN's kernels), and plain or remat
+    per_step = {"gemm_pdw": (expect(subject_matmul=2, tap_conv_dw=15, batchnorm_gelu=BN_STEP),
+                             expect(subject_matmul=2, tap_conv_dw=15, batchnorm_gelu=BN_REMAT_STEP)),
+                "pallas_taps": (expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30, batchnorm_gelu=BN_STEP),
+                                expect(subject_matmul=2, tap_conv_dw=15, tap_conv=45, batchnorm_gelu=BN_REMAT_STEP))}
+    group_step = expect(subject_matmul=2, tap_conv_dw=15)  # a group's BatchNorm is TorchBatchNorm's
     decodes = expect(subject_matmul=2, conv_block_fused=10)  # one checked B=64 decode a store dtype
     paths = {}
 
@@ -1737,7 +1756,7 @@ def memory_scaling_phase(expect) -> dict:
                  r["remat_f32_b16_group"])
     g = a["group"]
     for name, r in g.items():
-        if r["launches"] != times(per_step["gemm_pdw"][name == "remat"], 5):
+        if r["launches"] != times(group_step, 5):
             raise AssertionError(f"remat NCCL group step ({name}): launches {r['launches']}")
     if g["plain"]["collectives_per_step"] != g["remat"]["collectives_per_step"]:
         raise AssertionError(f"the remat group step's collectives differ: {g}")
@@ -2236,6 +2255,7 @@ def main() -> int:
             flip_taps, pad_channels, tap_conv, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain, tap_conv_transposed,
         )
         from speech_decoding_tpu_torch.serving import DecoderServer, decode_request
+        from speech_decoding_tpu_torch.tools import bench_batchnorm_gelu as bn_tool
         from speech_decoding_tpu_torch.tools import bench_cross_block_merge as merge_tool
         from speech_decoding_tpu_torch.tools import scale_run
         from speech_decoding_tpu_torch.training import (
@@ -2258,7 +2278,7 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t = time.perf_counter()
     libs = _build.build(["subject_matmul", "conv_block", "tap_conv_dw", "retrieval_ranks", "tap_conv",
-                         "conv_block_train"])
+                         "conv_block_train", "batchnorm_gelu"])
     emit(phase="build", seconds=time.perf_counter() - t, libraries=[os.path.relpath(p, ROOT) for p in libs])
 
     # every path's run sets all launch counters to 0 just before and reads them all just after
@@ -3003,7 +3023,7 @@ def main() -> int:
         return cfg_, enc_, step_, state_, launches, per_step_
 
     cfg, enc_t, step, state, train_launches, per_step = train_path(
-        "train", "gemm_pdw", False, 20, expect(subject_matmul=2, tap_conv_dw=15), True)
+        "train", "gemm_pdw", False, 20, expect(subject_matmul=2, tap_conv_dw=15, batchnorm_gelu=BN_STEP), True)
 
     # -- 9b. the fused train path (K6) ------------------------------------------
     k6_step = dict(F1=5, F2=5, F3=5, B1=5, B2=5, B3=5)
@@ -3020,7 +3040,8 @@ def main() -> int:
 
     # -- 9c. the pallas_taps train path (K5) ---------------------------------
     cfg_taps, _, _, tstate, taps_launches, taps_per_step = train_path(
-        "taps_train", "pallas_taps", False, 10, expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30), False)
+        "taps_train", "pallas_taps", False, 10,
+        expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30, batchnorm_gelu=BN_STEP), False)
 
     # -- 10. the eval paths: chunked eval over 2048 segments ----------------------
     Xe = torch.randn(NE, T, C, generator=gdev, device=dev) * 10
@@ -3412,6 +3433,20 @@ def main() -> int:
              timing=tool["timing"])
     del x7, args7
 
+    # -- 12b. BN: the port's bench_batchnorm_gelu ----------------------------------------------
+    # one layer of train-mode BatchNorm + GELU at the benchmark cell's shape, with and without
+    # the residual input: h, the running statistics, dy, dscale and dbias against the plain
+    # version (raises past the card tests' tolerances), then the kernels' ms by CUDA events and
+    # on the device (each kernel apart) beside the bound and the plain version's eager chain
+    torch.cuda.synchronize()
+    reset_counts()
+    bn = bn_tool.run("cuda")
+    bn_launches = read_counts()
+    bn_runs = ("with_skip", "without_skip")
+    emit(tool="speech_decoding_tpu_torch.tools.bench_batchnorm_gelu", **bn, launches=bn_launches)
+    if bn_launches != expect(batchnorm_gelu=bn_launches["batchnorm_gelu"]) or bn_launches["batchnorm_gelu"] < 1:
+        raise AssertionError(f"the BN tool launched other kernels or none of its own: {bn_launches}")
+
     # -- 13. the training loop: the port's scale run at the flagship ---------------------
     # Trainer.run_epoch over a device-resident world (scan_steps 8), eval of
     # the 64 held-out segments every epoch, checkpoints in a temporary
@@ -3448,7 +3483,8 @@ def main() -> int:
                                  f"{retrieval_ranks.splits} depth slices")
         # the module step replays its graph from its second call on
         launched = launched_steps(steps, [trainer.train_step])
-        want = expect(subject_matmul=2 * launched + SR_EPOCHS, tap_conv_dw=15 * launched, retrieval_ranks=SR_EPOCHS)
+        want = expect(subject_matmul=2 * launched + SR_EPOCHS, tap_conv_dw=15 * launched, retrieval_ranks=SR_EPOCHS,
+                      batchnorm_gelu=BN_STEP * launched)
         if launched != 2 or trainer_launches != want:
             raise AssertionError(f"trainer launches: {trainer_launches} in {launched} launched steps, "
                                  f"expected {want}")
@@ -3522,7 +3558,8 @@ def main() -> int:
              resumed_testTop10acc=out_r["testTop10acc"], launches=preempt_launches)
         # each Trainer's module step replays its graph from its second call on
         launched = launched_steps(16 + 24, [pre_tr.train_step, res_tr.train_step])
-        want = expect(subject_matmul=2 * launched + 1, tap_conv_dw=15 * launched, retrieval_ranks=1)
+        want = expect(subject_matmul=2 * launched + 1, tap_conv_dw=15 * launched, retrieval_ranks=1,
+                      batchnorm_gelu=BN_STEP * launched)
         if (launched != 4 or preempt_launches != want or res_tr.state.step != 40
                 or not np.isfinite(out_r["train_loss"])):
             raise AssertionError(f"preemption launches {preempt_launches} in {launched} launched steps, expected "
@@ -3591,7 +3628,8 @@ def main() -> int:
     # -- 14. summary ---------------------------------------------------------
     paths = {"serve": launches, "train": train_launches, "eval": eval_launches, "fused_train": fused_launches,
              "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"], "tool": tool_launches,
-             "trainer": trainer_launches, "trainer_fused": fused_trainer_launches, "preemption": preempt_launches,
+             "bn_tool": bn_launches, "trainer": trainer_launches, "trainer_fused": fused_trainer_launches,
+             "preemption": preempt_launches,
              "checkpoint_serve": serve_ck_launches, **prep_paths, **cli_paths, **dp_paths, **ms_paths, **ma_paths}
 
     def launches_of(kernel):
@@ -3689,6 +3727,24 @@ def main() -> int:
          "device_ms_by_k_next": {k: v["merged_device_ms"] for k, v in k7.items()},
          "library": "none: no single PyTorch call computes it; K6's wgmma pair F3 + F1 is its yardstick",
          "timed": "one block boundary (k_next=1, d0n=4) at the flagship, by the port's bench_cross_block_merge"},
+        {"name": "batchnorm_gelu", "route": "cuda",
+         "source": "speech_decoding_tpu_torch/csrc/batchnorm_gelu.cu",
+         "header": "speech_decoding_tpu_torch/csrc/tap3.cuh (its BatchNorm and GELU device functions)",
+         "replaces": "none: the module path's train-mode BatchNorm and GELU, eager PyTorch before",
+         "launches": launches_of("batchnorm_gelu"),
+         "launches_by_path": {k: p["batchnorm_gelu"] for k, p in paths.items()},
+         "max_abs_err": max(bn[k]["check"]["h_max_abs_err"] for k in bn_runs),
+         "backward_max_abs_err": {out: max(bn[k]["check"][f"{out}_max_abs_err"] for k in bn_runs)
+                                  for out in ("dy", "dscale", "dbias")},
+         "max_over_tol": max(v for k in bn_runs for name, v in bn[k]["check"].items() if name.endswith("_over_tol")),
+         "ms": bn["with_skip"]["ms"], "plain_ms": bn["with_skip"]["plain_ms"], "bound_ms": bn["bound_ms"],
+         "bound_by": bn["bound_by"], "library_ms": None, "device_ms": bn["with_skip"]["device_ms"],
+         "plain_device_ms": bn["with_skip"]["plain_device_ms"],
+         "kernel_records": bn["with_skip"]["kernel_records"],
+         "plain_kernel_records": bn["with_skip"]["plain_kernel_records"],
+         "without_skip": {k: bn["without_skip"][k] for k in ("ms", "device_ms", "plain_ms", "plain_device_ms")},
+         "library": "none: no single PyTorch call computes train-mode BatchNorm then GELU with its backward",
+         "timed": "one layer's forward and backward at B=256, T=360, C=320 with the residual input"},
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,6 +69,41 @@ __device__ __forceinline__ float dgelu(float u) {
   return cdf + u * pdf;
 }
 
+// GELU and GELU' from one exp, for passes that the erff pair above holds
+// to half the card's bandwidth by instructions (batchnorm_gelu.cu, the
+// module path's BatchNorm). K6's and K7's epilogues keep gelu and dgelu, so
+// the fused path's outputs stay the bits they were; the pair below would
+// move Φ by up to 1.5e-7 there, and no cell measures that path.
+
+// Two values rounded to bf16 by one instruction (cvt.rn.bf16x2.f32), each as
+// a PyTorch op in bf16 rounds it
+__device__ __forceinline__ float2 rnd2(float a, float b) { return __bfloat1622float2(__floats2bfloat162_rn(a, b)); }
+
+// Φ(u) and e = e^(−u²/2) from one exp: erfc(|u|/√2) = poly(t) · e by
+// Abramowitz–Stegun 7.1.26 (|err| ≤ 1.5e-7; the JAX package's Pallas kernels
+// build erf so), whose e^(−z²) at z = |u|/√2 is e; the lower tail is taken
+// as it is, not as 1 − (1 − tail). One rcp and one exp a value, no branch.
+__device__ __forceinline__ float normal_cdf_as(float u, float& e) {
+  const float t = __fdividef(1.f, fmaf(0.3275911f * 0.70710678118654752f, fabsf(u), 1.f));
+  e = __expf(-0.5f * u * u);
+  const float tail = 0.5f * e *
+      (t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f)))));
+  return u < 0.f ? tail : 1.f - tail;
+}
+
+// GELU(u) = u · Φ(u)
+__device__ __forceinline__ float gelu_as(float u) {
+  float e;
+  return u * normal_cdf_as(u, e);
+}
+
+// GELU'(u) = Φ(u) + u · φ(u)
+__device__ __forceinline__ float dgelu_as(float u) {
+  float e;
+  const float cdf = normal_cdf_as(u, e);
+  return fmaf(u * e, 0.39894228040143268f, cdf);
+}
+
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
 // BatchNorm applied in T from f32 statistics, one rounding per op as in

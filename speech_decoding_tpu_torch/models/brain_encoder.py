@@ -28,7 +28,9 @@ across unchanged:
     ones in place (torch.nn.BatchNorm1d semantics), and applies one spatial
     dropout mask to the whole batch; under a data-parallel ``group`` the
     statistics are those of the global batch (synchronized BatchNorm, as
-    GSPMD gives JAX's module path on a mesh);
+    GSPMD gives JAX's module path on a mesh). On the card, with no group,
+    a bf16 block's skip add, train-mode BatchNorm and GELU run as one op,
+    ``ops.batchnorm_gelu`` (hand-written kernels, two passes each way);
   * GELU is exact (erf); initializers match torch defaults
     (U(±1/sqrt(fan_in)) for conv weights and biases, U(0, 1) for z), drawn
     from the caller's ``torch.Generator``;
@@ -68,6 +70,7 @@ from torch import nn
 from torch.nn import functional as Fn
 from torch.utils.checkpoint import checkpoint
 
+from speech_decoding_tpu_torch.ops import batchnorm_gelu as bn_gelu
 from speech_decoding_tpu_torch.ops.conv_block import dilations
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
 from speech_decoding_tpu_torch.ops.tap_conv import PallasTapConv, tap_conv_dw
@@ -156,13 +159,12 @@ class TorchBatchNorm(nn.Module):
         if train:
             stash = getattr(_REMAT, "stash", None)
             replaying = stash is not None and stash.replaying
-            xf = x.float()
             n = x.shape[0] * x.shape[1]
             if group is None:
-                mean = xf.mean(dim=(0, 1))
-                var = (xf * xf).mean(dim=(0, 1)) - mean * mean
+                mean, var = bn_gelu.batch_moments(x)
             else:
                 n *= group.world
+                xf = x.float()
                 local = torch.stack([xf.sum(dim=(0, 1)), (xf * xf).sum(dim=(0, 1))])
                 if replaying:
                     sums = kept_all_reduce_sum(local, stash.next_sums(), group)
@@ -173,16 +175,26 @@ class TorchBatchNorm(nn.Module):
                 mean = sums[0] / n
                 var = sums[1] / n - mean * mean
             if not replaying:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.mean.mul_(1 - m).add_(m * mean)
-                    self.var.mul_(1 - m).add_(m * (var * (n / max(n - 1, 1))))
+                bn_gelu.move_running(self.mean, self.var, mean, var, n, self.momentum)
         else:
             mean, var = self.mean, self.var
-        inv = torch.rsqrt(var + self.eps) * self.scale
         # normalize in the compute dtype (exact f32 when compute_dtype is f32)
-        dt = self.compute_dtype
-        return (x.to(dt) - mean.to(dt)) * inv.to(dt) + self.bias.to(dt)
+        return bn_gelu.normalize(x, mean, var, self.scale, self.bias, self.eps, self.compute_dtype)
+
+    def gelu(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None, train: bool = False,
+             group: Optional[DataGroup] = None) -> torch.Tensor:
+        """GELU(BN(x + skip)). In train mode with no ``group`` on a bf16
+        activation the card's kernels take (``ops.batchnorm_gelu``), one
+        differentiable op: the same formulas, the running statistics moved
+        in place (left alone in a remat recomputation). Otherwise the add,
+        ``forward`` and GELU as separate ops."""
+        if train and group is None and self.compute_dtype == torch.bfloat16 and bn_gelu.takes(x):
+            stash = getattr(_REMAT, "stash", None)
+            return bn_gelu.bn_gelu_train(x, skip, self.scale, self.bias, self.mean, self.var, self.eps,
+                                         self.momentum, update=stash is None or not stash.replaying)
+        if skip is not None:
+            x = x + skip
+        return _gelu(self(x, train, group))
 
 
 def _conv_taps(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
@@ -441,12 +453,9 @@ class ConvBlock(nn.Module):
         self.conv2 = Conv1d(D2, 2 * D2, 3, 2, dt, generator, conv_impl)
 
     def forward(self, X: torch.Tensor, train: bool = False, group: Optional[DataGroup] = None) -> torch.Tensor:
-        Y = self.conv0(X)
-        if self.k > 0:
-            Y = Y + X  # skip [ref: models.py:156]
-        Y = _gelu(self.batchnorm0(Y, train, group))
-        Y = self.conv1(Y) + Y
-        Y = _gelu(self.batchnorm1(Y, train, group))
+        # the skip of X from block 1 on [ref: models.py:156], and of Y
+        Y = self.batchnorm0.gelu(self.conv0(X), X if self.k > 0 else None, train, group)
+        Y = self.batchnorm1.gelu(self.conv1(Y), Y, train, group)
         Y = self.conv2(Y)
         a, b = Y.chunk(2, dim=-1)  # GLU over channels [ref: models.py:164]
         return a * torch.sigmoid(b)
