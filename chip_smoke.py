@@ -3114,8 +3114,7 @@ def main() -> int:
     wmma_out = torch.empty_like(x)
 
     def k1_wmma():
-        sc._entry("subject_matmul_bf16")(x.data_ptr(), w.data_ptr(), ids.data_ptr(), 0, wmma_out.data_ptr(),
-                                         B, T, D1, D1, torch.cuda.current_stream().cuda_stream)
+        sc.LIB("subject_matmul_bf16", x.device, x, w, ids, 0, wmma_out, B, T, D1, D1)
 
     k1_wmma()
     compare("K1 wmma body at the flagship", wmma_out, subject_matmul_plain(x, w, ids),

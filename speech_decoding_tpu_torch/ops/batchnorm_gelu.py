@@ -35,24 +35,18 @@ u and GELU') and rounds dy to bf16 once, where autograd rounds at every op.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.ops import _build
-from speech_decoding_tpu_torch.ops.tap_conv import _sms
+from speech_decoding_tpu_torch.ops._build import DOUBLE, INT, PTR
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# argument types of each C entry, set once when the library loads
-_SIGNATURES = {
-    "bngelu_fwd": [_P] * 10 + [_I] * 3 + [_D] * 2 + [_P],
-    "bngelu_bwd": [_P] * 10 + [_I] * 3 + [_P],
-}
+LIB = _build.Library("batchnorm_gelu", {"bngelu_fwd": [PTR] * 10 + [INT] * 3 + [DOUBLE] * 2,
+                                        "bngelu_bwd": [PTR] * 10 + [INT] * 3})
 _MAX_BLOCKS = 8  # a row pass's blocks an SM, at most: csrc/batchnorm_gelu.cu MAX_BLOCKS
 KERNELS = 3  # kernels a forward or a backward launches: a sum pass, its finalize, a row pass
-_entries = {}
 
 
 def takes(y: torch.Tensor) -> bool:
@@ -101,20 +95,6 @@ def bn_gelu_train_plain(y, skip, scale, bias, mean, var, eps: float = 1e-5, mome
     return Fn.gelu(normalize(y, m, v, scale, bias, eps, y.dtype), approximate="none")
 
 
-def _entry(name: str):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("batchnorm_gelu"), name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous on a 16-byte-aligned base (a copy where it is not)."""
     t = t.contiguous()
@@ -129,16 +109,9 @@ def _check_params(y: torch.Tensor, *params: torch.Tensor) -> None:
                              f"float32 on {y.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _run(name: str, dev, tensors, ints, floats=()) -> None:
-    fn = _entry(name)
-    with torch.cuda.device(dev):
-        err = fn(*[_ptr(t) for t in tensors], *ints, *floats, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, f"batchnorm_gelu {name}")
-
-
 def _part(C: int, dev) -> torch.Tensor:
     """f32 scratch: the two per-channel sums of each block of a sum pass."""
-    return torch.empty(_MAX_BLOCKS * _sms(dev) * 2 * C, dtype=torch.float32, device=dev)
+    return torch.empty(_MAX_BLOCKS * _build.sms(dev) * 2 * C, dtype=torch.float32, device=dev)
 
 
 class _BnGeluTrain(torch.autograd.Function):
@@ -160,8 +133,8 @@ class _BnGeluTrain(torch.autograd.Function):
         h = torch.empty_like(a)
         st = torch.empty(3, C, dtype=torch.float32, device=dev)
         moved = (mean, var) if update else (None, None)
-        _run("bngelu_fwd", dev, [a, skip, scale, bias, y, h, _part(C, dev), st, *moved],
-             [rows, C, _sms(dev)], [eps, momentum])
+        LIB("bngelu_fwd", dev, a, skip, scale, bias, y, h, _part(C, dev), st, *moved, rows, C, _build.sms(dev), eps,
+            momentum)
         bn_gelu_train.launches += KERNELS
         ctx.save_for_backward(y, st, scale, bias)
         ctx.has_skip = skip is not None
@@ -176,8 +149,7 @@ class _BnGeluTrain(torch.autograd.Function):
         dy = torch.empty_like(y)
         dscale, dbias = torch.empty_like(scale), torch.empty_like(bias)
         cst = torch.empty(2, C, dtype=torch.float32, device=dev)
-        _run("bngelu_bwd", dev, [dh, y, st, bias, scale, _part(C, dev), cst, dscale, dbias, dy],
-             [rows, C, _sms(dev)])
+        LIB("bngelu_bwd", dev, dh, y, st, bias, scale, _part(C, dev), cst, dscale, dbias, dy, rows, C, _build.sms(dev))
         bn_gelu_train.launches += KERNELS
         return dy, dy if ctx.has_skip else None, dscale, dbias, None, None, None, None, None
 

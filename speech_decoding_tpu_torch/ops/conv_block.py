@@ -22,7 +22,7 @@ route reads (``stage_weight``): f32 (3, Cin, Cout) as the reference holds
 them; bf16 the K-major images ``[j, n, ci]`` of the wgmma body, conv0's and
 conv1's through ``tap_conv.pack_weights`` (the input depth zero-padded to a
 multiple of 8, ``conv0_depth``), conv2's through
-``conv_block_train.glu_pack`` (each channel's value and gate side by side).
+``glu_pack`` (each channel's value and gate side by side).
 ``conv_block_plain``, a step-by-step copy of the Pallas ``_block_kernel``
 batched over rows, reads either layout (``plain_weight``), so the CPU and
 the card's plain comparison take the same staged tuple.
@@ -35,22 +35,18 @@ counts one launch a block, whatever the route. Used by the serving encode
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import List, Sequence, Tuple
 
 import torch
+from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.ops import _build
+from speech_decoding_tpu_torch.ops._build import INT, PTR
+from speech_decoding_tpu_torch.ops.tap_conv import conv3, pack_weights, pad_channels
 
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# argument types of each C entry of csrc/conv_block.cu, set once when the library loads
-_SIGNATURES = {
-    "conv_block_fused_f32": [_P] * 10 + [_I] * 5 + [_P],
-    "conv_block_fused_wg": [_P] * 12 + [_I] * 6 + [_P],
-}
-_entries = {}
+LIB = _build.Library("conv_block", {"conv_block_fused_f32": [PTR] * 10 + [INT] * 5,
+                                    "conv_block_fused_wg": [PTR] * 12 + [INT] * 6})
 
 Staged = Tuple[torch.Tensor, ...]  # (w0, b0, a0, w1, b1, a1, w2, b2)
 
@@ -60,24 +56,11 @@ def dilations(k: int) -> Tuple[int, int]:
     return 2 ** ((2 * k) % 5), 2 ** ((2 * k + 1) % 5)
 
 
-def _gelu_exact_f32(x: torch.Tensor) -> torch.Tensor:
+def gelu_exact_f32(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU in f32 (the Pallas kernel builds erf from exp because
     Mosaic lacks it; torch.erf is exact)."""
     xf = x.float()
     return 0.5 * xf * (1.0 + torch.erf(xf * (1.0 / math.sqrt(2.0))))
-
-
-def _conv3(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
-    """(B, T, Cin) x (3, Cin, Cout) dilated-by-d 'SAME' conv as 3 shifted
-    matmuls, zero padding at the edges, f32 accumulation."""
-    T = x.shape[-2]
-    xp = torch.nn.functional.pad(x.float(), (0, 0, d, d))
-    wf = w.float()
-    y = None
-    for j in range(3):
-        yj = xp[:, j * d : j * d + T] @ wf[j]
-        y = yj if y is None else y + yj
-    return y
 
 
 def plain_weight(w: torch.Tensor, cin: int, glu: bool = False) -> torch.Tensor:
@@ -103,13 +86,13 @@ def conv_block_plain(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
     dt = x.dtype
     D2 = b1.shape[0]
     w0, w1, w2 = plain_weight(w0, x.shape[-1]), plain_weight(w1, D2), plain_weight(w2, D2, glu=True)
-    y = _conv3(x, w0, d0) + b0
+    y = conv3(x, w0, d0) + b0
     if k > 0:
         y = y + x.float()
-    y = _gelu_exact_f32(y * a0[0] + a0[1]).to(dt)
-    y1 = _conv3(y, w1, d1) + b1 + y.float()
-    y1 = _gelu_exact_f32(y1 * a1[0] + a1[1]).to(dt)
-    y2 = _conv3(y1, w2, 2) + b2
+    y = gelu_exact_f32(y * a0[0] + a0[1]).to(dt)
+    y1 = conv3(y, w1, d1) + b1 + y.float()
+    y1 = gelu_exact_f32(y1 * a1[0] + a1[1]).to(dt)
+    y2 = conv3(y1, w2, 2) + b2
     return (y2[..., :D2] * torch.sigmoid(y2[..., D2:])).to(dt)
 
 
@@ -120,30 +103,30 @@ def conv0_depth(cin: int, dtype: torch.dtype) -> int:
     return cin + (-cin % 8) if dtype == torch.bfloat16 else cin
 
 
+def glu_pack(w2: torch.Tensor) -> torch.Tensor:
+    """w2 (3, Cin, 2C) [value | gate] as the GLU conv of K4's conv2 and of
+    K6's F3 and B1 reads it: K-major (3, 2C, Cin8) with ``[j, 2c, ci] =
+    w2[j, ci, c]`` and ``[j, 2c + 1, ci] = w2[j, ci, C + c]``, so a wgmma
+    accumulator thread, which holds adjacent column pairs, holds both halves
+    of its channels; the input channels zero-padded to a multiple of 8. One
+    copy."""
+    _, cin, c2 = w2.shape
+    v = w2.reshape(3, cin, 2, c2 // 2).permute(0, 3, 2, 1)  # (3, C, 2, Cin)
+    pad = -cin % 8
+    return (Fn.pad(v, (0, pad)) if pad else v.contiguous()).view(3, c2, cin + pad)
+
+
 def stage_weight(w: torch.Tensor, dtype: torch.dtype, glu: bool = False) -> torch.Tensor:
     """A (3, Cin, Cout) conv weight as the route of ``dtype`` reads it, in a
     buffer of its own (16-byte aligned). f32: (3, Cin, Cout). bf16: the
     K-major image (3, Cout, ``conv0_depth(Cin)``) of ``tap_conv.pack_weights``
     with ``[j, n, ci] = w[j, ci, n]``; with ``glu`` (conv2, Cout = 2·D2)
-    ``conv_block_train.glu_pack``'s, whose rows 2c and 2c + 1 are channel c's
-    value and gate columns."""
+    ``glu_pack``'s, whose rows 2c and 2c + 1 are channel c's value and gate
+    columns."""
     if dtype != torch.bfloat16:
         return torch.empty(w.shape, dtype=dtype, device=w.device).copy_(w)
-    from speech_decoding_tpu_torch.ops.conv_block_train import glu_pack
-    from speech_decoding_tpu_torch.ops.tap_conv import pack_weights
-
     w = w.to(dtype)
     return glu_pack(w) if glu else pack_weights(w)
-
-
-def _entry(name: str):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("conv_block"), name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
 
 
 def _route(dtype: torch.dtype, D2: int) -> str:
@@ -186,24 +169,15 @@ def _launch(x, w0, b0, a0, w1, b1, a1, w2, b2, k: int) -> torch.Tensor:
     out = torch.empty((B, T, D2), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route == "wgmma":
-            from speech_decoding_tpu_torch.ops.tap_conv import _sms, pad_channels
-
-            xp = pad_channels(x)  # 16-byte rows and base: block 0's 270 channels become 272
-            h0, h1 = torch.empty_like(out), torch.empty_like(out)
-            err = _entry("conv_block_fused_wg")(
-                xp.data_ptr(), w0.data_ptr(), b0.data_ptr(), a0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                a1.data_ptr(), w2.data_ptr(), b2.data_ptr(), h0.data_ptr(), h1.data_ptr(), out.data_ptr(),
-                B, T, xp.shape[2], D2, k, _sms(x.device), stream)
-        else:
-            if x.data_ptr() % 16:  # the x window is read with 16-byte loads where the width allows
-                x = x.clone()
-            err = _entry("conv_block_fused_f32")(
-                x.data_ptr(), w0.data_ptr(), b0.data_ptr(), a0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                a1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, T, Cin, D2, k, stream)
-    _build.check(err, f"conv_block_fused k={k} ({route})")
+    if route == "wgmma":
+        xp = pad_channels(x)  # 16-byte rows and base: block 0's 270 channels become 272
+        h0, h1 = torch.empty_like(out), torch.empty_like(out)
+        LIB("conv_block_fused_wg", x.device, xp, w0, b0, a0, w1, b1, a1, w2, b2, h0, h1, out, B, T, xp.shape[2], D2,
+            k, _build.sms(x.device))
+    else:
+        if x.data_ptr() % 16:  # the x window is read with 16-byte loads where the width allows
+            x = x.clone()
+        LIB("conv_block_fused_f32", x.device, x, w0, b0, a0, w1, b1, a1, w2, b2, out, B, T, Cin, D2, k)
     conv_block_fused.route = route
     conv_block_fused.launches += 1
     return out

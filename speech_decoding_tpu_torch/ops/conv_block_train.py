@@ -42,7 +42,7 @@ card. On the card a stage takes one of two routes, by ``_fast_path``:
 ``"wgmma"`` (bf16, C a multiple of 8, 16-byte-aligned y0/y1: K5's TMA-fed
 ``wgmma`` body, ``conv_wg`` of ``csrc/conv_wg.cuh`` (shared with K4), with
 the stage's epilogue, its weights packed K-major here, the GLU conv's by
-``glu_pack``, and the BN·GELU of F2, F3 and B1 as a pointwise pass that
+``conv_block.glu_pack``, and the BN·GELU of F2, F3 and B1 as a pointwise pass that
 stores h0 or h1) or
 ``"tap3"`` (f32, and bf16 outside the rule: the conv tile of
 ``csrc/tap3.cuh``). ``conv_block_train.route`` records the last launch's.
@@ -59,35 +59,31 @@ The plain versions use ``torch.erf``; the Pallas kernels build erf from exp
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 import weakref
 from typing import Sequence, Tuple
 
 import torch
-from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.ops import _build
-from speech_decoding_tpu_torch.ops.conv_block import _conv3, _gelu_exact_f32, dilations
+from speech_decoding_tpu_torch.ops._build import INT, PTR
+from speech_decoding_tpu_torch.ops.conv_block import dilations, gelu_exact_f32, glu_pack
 from speech_decoding_tpu_torch.ops.tap_conv import (
-    _sms, flip_taps, pack_weights, pad_channels, tap_conv_dw, tap_conv_dw_plain,
+    conv3, flip_taps, pack_weights, pad_channels, tap_conv_dw, tap_conv_dw_plain,
 )
 from speech_decoding_tpu_torch.parallel.collectives import all_reduce_
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # time rows a conv tile: csrc/conv_wg.cuh wg::TM, csrc/tap3.cuh TM (also the BN-backward pass's tile)
 _TM = {"wgmma": 192, "tap3": 64}
-_P, _I = ctypes.c_void_p, ctypes.c_int
 # (pointers, ints) of each C entry before its stream; the tap3 entries come in f32 and bf16
 _TAP3_ARGS = {"f1": (6, 6), "f2": (8, 4), "f3": (6, 3), "b1": (13, 3), "b2": (14, 4), "b3": (9, 6), "f31": (11, 4)}
 _WG_ARGS = {"f1": (6, 7), "f2": (9, 5), "f3": (7, 4), "b1": (13, 4), "b2": (14, 5), "b3": (9, 7), "f31": (13, 5)}
-# argument types of each C entry, set once when the library loads
-_SIGNATURES = {
-    **{f"cbt_{st}_{suf}": [_P] * p + [_I] * i + [_P] for st, (p, i) in _TAP3_ARGS.items() for suf in ("f32", "bf16")},
-    **{f"cbt_{st}_wg": [_P] * p + [_I] * i + [_P] for st, (p, i) in _WG_ARGS.items()},
-}
-_entries = {}
+LIB = _build.Library("conv_block_train", {
+    **{f"cbt_{st}_{suf}": [PTR] * p + [INT] * i for st, (p, i) in _TAP3_ARGS.items() for suf in ("f32", "bf16")},
+    **{f"cbt_{st}_wg": [PTR] * p + [INT] * i for st, (p, i) in _WG_ARGS.items()},
+})
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -123,7 +119,7 @@ def _sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _h(y, mi, gb, dt):
     u, xhat = _bn_apply(y, mi, gb, dt)
-    return _gelu_exact_f32(u).to(dt), u, xhat
+    return gelu_exact_f32(u).to(dt), u, xhat
 
 
 # -- plain versions: the Pallas bodies, batched over rows -------------------------------
@@ -131,7 +127,7 @@ def _h(y, mi, gb, dt):
 
 def f1_plain(x, w0, b0, k: int):
     d0, _ = dilations(k)
-    y = _conv3(x, w0, d0) + b0
+    y = conv3(x, w0, d0) + b0
     if k > 0:
         y = y + x.float()
     y0 = y.to(x.dtype)
@@ -141,14 +137,14 @@ def f1_plain(x, w0, b0, k: int):
 def f2_plain(y0, mi0, gb0, w1, b1, k: int):
     _, d1 = dilations(k)
     h0, _, _ = _h(y0, mi0, gb0, y0.dtype)
-    y1 = (_conv3(h0, w1, d1) + b1 + h0.float()).to(y0.dtype)
+    y1 = (conv3(h0, w1, d1) + b1 + h0.float()).to(y0.dtype)
     return y1, _sums(y1, y1.float() ** 2)
 
 
 def f3_plain(y1, mi1, gb1, w2, b2):
     dt = y1.dtype
     h1, _, _ = _h(y1, mi1, gb1, dt)
-    y2 = _conv3(h1, w2, 2) + b2
+    y2 = conv3(h1, w2, 2) + b2
     C = y2.shape[-1] // 2
     return y2[..., :C].to(dt) * torch.sigmoid(y2[..., C:]).to(dt)
 
@@ -175,12 +171,12 @@ def f31_plain(y1, mi1, gb1, w2, b2, w0n, b0n, k_next: int):
 def b1_plain(dout, y1, mi1, gb1, w2, b2, w2t):
     dt = y1.dtype
     h1, u1, xhat1 = _h(y1, mi1, gb1, dt)
-    y2 = _conv3(h1, w2, 2) + b2
+    y2 = conv3(h1, w2, 2) + b2
     C = y2.shape[-1] // 2
     a, sig = y2[..., :C], torch.sigmoid(y2[..., C:])
     df = dout.float()
     dy2 = torch.cat([df * sig, df * a * sig * (1.0 - sig)], dim=-1).to(dt)
-    du1 = (_conv3(dy2, w2t, 2) * _dgelu_f32(u1)).to(dt)
+    du1 = (conv3(dy2, w2t, 2) * _dgelu_f32(u1)).to(dt)
     return du1, _sums(du1, du1.float() * xhat1.float()), tap_conv_dw_plain(h1, dy2, 2), dy2.float().sum((0, 1))
 
 
@@ -195,7 +191,7 @@ def b2_plain(du1, y1, mi1, g1c, y0, mi0, gb0, w1t, k: int):
     dt = y1.dtype
     dy1 = _bn_bwd(du1, y1, mi1, g1c, dt)
     h0, u0, xhat0 = _h(y0, mi0, gb0, dt)
-    du0 = ((_conv3(dy1, w1t, d1) + dy1.float()) * _dgelu_f32(u0)).to(dt)
+    du0 = ((conv3(dy1, w1t, d1) + dy1.float()) * _dgelu_f32(u0)).to(dt)
     return (du0, _sums(du0, du0.float() * xhat0.float()), tap_conv_dw_plain(h0, dy1, d1),
             dy1.float().sum((0, 1)))
 
@@ -203,7 +199,7 @@ def b2_plain(du1, y1, mi1, g1c, y0, mi0, gb0, w1t, k: int):
 def b3_plain(du0, y0, mi0, g0c, x, w0t, k: int):
     d0, _ = dilations(k)
     dy0 = _bn_bwd(du0, y0, mi0, g0c, y0.dtype)
-    dx = _conv3(dy0, w0t, d0)
+    dx = conv3(dy0, w0t, d0)
     if k > 0:
         dx = dx + dy0.float()
     return dx.to(x.dtype), tap_conv_dw_plain(x, dy0, d0), dy0.float().sum((0, 1))
@@ -222,23 +218,6 @@ def _check(stage: str, dt, dev, expect: Sequence) -> None:
                              f"got {tuple(t.shape)} {t.dtype}")
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"conv_block_train {stage} argument {i + 1} must be contiguous on {dev}")
-
-
-def _entry(name: str):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("conv_block_train"), name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
-
-
-def _run(entry: str, stage: str, tensors, ints, dev) -> None:
-    fn = _entry(entry)
-    with torch.cuda.device(dev):
-        err = fn(*[t.data_ptr() for t in tensors], *ints, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, f"conv_block_train {stage}")
 
 
 def _empty(dev, *shape, dtype=torch.float32):
@@ -304,18 +283,6 @@ def _route(tile: bool, dt, C: int, *vec: torch.Tensor) -> bool:
     return fast
 
 
-def glu_pack(w2: torch.Tensor) -> torch.Tensor:
-    """w2 (3, Cin, 2C) [value | gate] as the GLU conv of F3 and B1 reads it:
-    K-major (3, 2C, Cin8) with ``[j, 2c, ci] = w2[j, ci, c]`` and ``[j, 2c +
-    1, ci] = w2[j, ci, C + c]``, so a wgmma accumulator thread, which holds
-    adjacent column pairs, holds both halves of its channels; the input
-    channels zero-padded to a multiple of 8. One copy."""
-    _, cin, c2 = w2.shape
-    v = w2.reshape(3, cin, 2, c2 // 2).permute(0, 3, 2, 1)  # (3, C, 2, Cin)
-    pad = -cin % 8
-    return (Fn.pad(v, (0, pad)) if pad else v.contiguous()).view(3, c2, cin + pad)
-
-
 _x_pad_last = [None]  # (weak reference to x, x's _version then, x's pad_channels copy)
 
 
@@ -347,11 +314,10 @@ def _f1_launch(x, w0, b0, k, tile=False):
     d0, skip = dilations(k)[0], int(k > 0)
     if _route(tile, dt, C):
         xp = x_padded(x)
-        _run("cbt_f1_wg", "F1", [xp, pack_weights(w0), b0, y0, _part(B, T, C, dev, "wgmma"), s0],
-             [B, T, xp.shape[2], C, d0, skip, _sms(dev)], dev)
+        LIB("cbt_f1_wg", dev, xp, pack_weights(w0), b0, y0, _part(B, T, C, dev, "wgmma"), s0, B, T, xp.shape[2], C, d0,
+            skip, _build.sms(dev))
     else:
-        _run(f"cbt_f1_{_DTYPES[dt]}", "F1", [x, w0, b0, y0, _part(B, T, C, dev, "tap3"), s0],
-             [B, T, Cin, C, d0, skip], dev)
+        LIB(f"cbt_f1_{_DTYPES[dt]}", dev, x, w0, b0, y0, _part(B, T, C, dev, "tap3"), s0, B, T, Cin, C, d0, skip)
     return y0, s0
 
 
@@ -364,11 +330,10 @@ def _f2_launch(y0, mi0, gb0, w1, b1, k, tile=False):
     d1 = dilations(k)[1]
     if _route(tile, dt, C, y0):
         h0 = _empty(dev, B, T, C, dtype=dt)
-        _run("cbt_f2_wg", "F2", [y0, mi0, gb0, pack_weights(w1), b1, h0, y1, _part(B, T, C, dev, "wgmma"), s1],
-             [B, T, C, d1, _sms(dev)], dev)
+        LIB("cbt_f2_wg", dev, y0, mi0, gb0, pack_weights(w1), b1, h0, y1, _part(B, T, C, dev, "wgmma"), s1, B, T, C, d1,
+            _build.sms(dev))
     else:
-        _run(f"cbt_f2_{_DTYPES[dt]}", "F2", [y0, mi0, gb0, w1, b1, y1, _part(B, T, C, dev, "tap3"), s1],
-             [B, T, C, d1], dev)
+        LIB(f"cbt_f2_{_DTYPES[dt]}", dev, y0, mi0, gb0, w1, b1, y1, _part(B, T, C, dev, "tap3"), s1, B, T, C, d1)
     return y1, s1
 
 
@@ -380,9 +345,9 @@ def _f3_launch(y1, mi1, gb1, w2, b2, tile=False):
     out = _empty(dev, B, T, C, dtype=dt)
     if _route(tile, dt, C, y1):
         h1 = _empty(dev, B, T, C, dtype=dt)
-        _run("cbt_f3_wg", "F3", [y1, mi1, gb1, glu_pack(w2), b2, h1, out], [B, T, C, _sms(dev)], dev)
+        LIB("cbt_f3_wg", dev, y1, mi1, gb1, glu_pack(w2), b2, h1, out, B, T, C, _build.sms(dev))
     else:
-        _run(f"cbt_f3_{_DTYPES[dt]}", "F3", [y1, mi1, gb1, w2, b2, out], [B, T, C], dev)
+        LIB(f"cbt_f3_{_DTYPES[dt]}", dev, y1, mi1, gb1, w2, b2, out, B, T, C)
     return out
 
 
@@ -404,12 +369,11 @@ def _f31_launch(y1, mi1, gb1, w2, b2, w0n, b0n, k_next, tile=False):
         scratch = _empty(dev, _f31_scratch_elems(B, T, C))
         n_part = _part_elems(B, T, C, "wgmma")
         f31.sync = scratch[n_part:]
-        _run("cbt_f31_wg", "F31", [y1, mi1, gb1, glu_pack(w2), b2, pack_weights(w0n), b0n,
-                                   _empty(dev, B, T, C, dtype=dt), out, y0n, scratch, f31.sync, s0n],
-             [B, T, C, d0n, _sms(dev)], dev)
+        LIB("cbt_f31_wg", dev, y1, mi1, gb1, glu_pack(w2), b2, pack_weights(w0n), b0n, _empty(dev, B, T, C, dtype=dt),
+            out, y0n, scratch, f31.sync, s0n, B, T, C, d0n, _build.sms(dev))
     else:
-        _run(f"cbt_f31_{_DTYPES[dt]}", "F31", [y1, mi1, gb1, w2, b2, w0n, b0n, out, y0n,
-                                               _part(B, T, C, dev, "tap3"), s0n], [B, T, C, d0n], dev)
+        LIB(f"cbt_f31_{_DTYPES[dt]}", dev, y1, mi1, gb1, w2, b2, w0n, b0n, out, y0n, _part(B, T, C, dev, "tap3"), s0n,
+            B, T, C, d0n)
     return out, y0n, s0n
 
 
@@ -421,11 +385,11 @@ def _b1_launch(dout, y1, mi1, gb1, w2, b2, w2t, tile=False):
     h1, dy2, du1 = _empty(dev, B, T, C, dtype=dt), _empty(dev, B, T, 2 * C, dtype=dt), _empty(dev, B, T, C, dtype=dt)
     db2, s = _empty(dev, 2 * C), _empty(dev, 2, C)
     if _route(tile, dt, C, y1):
-        _run("cbt_b1_wg", "B1", [dout, y1, mi1, gb1, glu_pack(w2), b2, pack_weights(w2t), h1, dy2, du1,
-                                 _part(B, T, C, dev, "wgmma"), db2, s], [B, T, C, _sms(dev)], dev)
+        LIB("cbt_b1_wg", dev, dout, y1, mi1, gb1, glu_pack(w2), b2, pack_weights(w2t), h1, dy2, du1,
+            _part(B, T, C, dev, "wgmma"), db2, s, B, T, C, _build.sms(dev))
     else:
-        _run(f"cbt_b1_{_DTYPES[dt]}", "B1", [dout, y1, mi1, gb1, w2, b2, w2t, h1, dy2, du1,
-                                             _part(B, T, C, dev, "tap3"), db2, s], [B, T, C], dev)
+        LIB(f"cbt_b1_{_DTYPES[dt]}", dev, dout, y1, mi1, gb1, w2, b2, w2t, h1, dy2, du1, _part(B, T, C, dev, "tap3"),
+            db2, s, B, T, C)
     return du1, s, tap_conv_dw(h1, dy2, 2), db2
 
 
@@ -438,11 +402,11 @@ def _b2_launch(du1, y1, mi1, g1c, y0, mi0, gb0, w1t, k, tile=False):
     db1, s = _empty(dev, C), _empty(dev, 2, C)
     d1 = dilations(k)[1]
     if _route(tile, dt, C, du1, y1, y0):
-        _run("cbt_b2_wg", "B2", [du1, y1, mi1, g1c, y0, mi0, gb0, pack_weights(w1t), dy1, h0, du0,
-                                 _part(B, T, C, dev, "wgmma"), db1, s], [B, T, C, d1, _sms(dev)], dev)
+        LIB("cbt_b2_wg", dev, du1, y1, mi1, g1c, y0, mi0, gb0, pack_weights(w1t), dy1, h0, du0,
+            _part(B, T, C, dev, "wgmma"), db1, s, B, T, C, d1, _build.sms(dev))
     else:
-        _run(f"cbt_b2_{_DTYPES[dt]}", "B2", [du1, y1, mi1, g1c, y0, mi0, gb0, w1t, dy1, h0, du0,
-                                             _part(B, T, C, dev, "tap3"), db1, s], [B, T, C, d1], dev)
+        LIB(f"cbt_b2_{_DTYPES[dt]}", dev, du1, y1, mi1, g1c, y0, mi0, gb0, w1t, dy1, h0, du0,
+            _part(B, T, C, dev, "tap3"), db1, s, B, T, C, d1)
     return du0, s, tap_conv_dw(h0, dy1, d1), db1
 
 
@@ -456,11 +420,11 @@ def _b3_launch(du0, y0, mi0, g0c, x, w0t, k, tile=False):
     dy0, dx, db0 = _empty(dev, B, T, C, dtype=dt), _empty(dev, B, T, Cin, dtype=dt), _empty(dev, C)
     d0, skip = dilations(k)[0], int(k > 0)
     if _route(tile, dt, C, du0, y0):
-        _run("cbt_b3_wg", "B3", [du0, y0, mi0, g0c, pack_weights(w0t), dy0, dx, _part(B, T, C, dev, "wgmma"), db0],
-             [B, T, Cin, C, d0, skip, _sms(dev)], dev)
+        LIB("cbt_b3_wg", dev, du0, y0, mi0, g0c, pack_weights(w0t), dy0, dx, _part(B, T, C, dev, "wgmma"), db0, B, T,
+            Cin, C, d0, skip, _build.sms(dev))
         return dx, tap_conv_dw(x, dy0, d0, padded=x_padded(x)), db0
-    _run(f"cbt_b3_{_DTYPES[dt]}", "B3", [du0, y0, mi0, g0c, w0t, dy0, dx, _part(B, T, C, dev, "tap3"), db0],
-         [B, T, Cin, C, d0, skip], dev)
+    LIB(f"cbt_b3_{_DTYPES[dt]}", dev, du0, y0, mi0, g0c, w0t, dy0, dx, _part(B, T, C, dev, "tap3"), db0, B, T, Cin, C,
+        d0, skip)
     return dx, tap_conv_dw(x, dy0, d0), db0
 
 

@@ -31,37 +31,22 @@ its depth slices):
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Sequence, Tuple
 
 import torch
 
 from speech_decoding_tpu_torch.ops import _build
-from speech_decoding_tpu_torch.ops.subject_conv import _on, _stream
-from speech_decoding_tpu_torch.ops.tap_conv import _sms
+from speech_decoding_tpu_torch.ops._build import FLOAT, INT, LONG, PTR
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# argument types of each C entry of csrc/retrieval_ranks.cu, set once when the library loads
-_SIGNATURES = {
-    "retrieval_ranks_f32": [_P] * 6 + [_I, _L, _F, _P],
-    "retrieval_prep": [_P] * 7 + [_I, _L, _I, _I, _F, _P],
-    "retrieval_ranks_wgmma": [_P] * 7 + [_I, _L, _I, _I, _F, _P],
-}
-_entries = {}
+LIB = _build.Library("retrieval_ranks", {
+    "retrieval_ranks_f32": [PTR] * 6 + [INT, LONG, FLOAT],
+    "retrieval_prep": [PTR] * 7 + [INT, LONG, INT, INT, FLOAT],
+    "retrieval_ranks_wgmma": [PTR] * 7 + [INT, LONG, INT, INT, FLOAT],
+})
 PREP_SLICE = 8192  # depth a preparation block (k3::PREP_SLICE)
 TILE = (64, 256)  # (i, j) a block of the wgmma body (k3::TM, k3::TN)
 CHUNK = 64  # depth a stage of the wgmma body (k3::BK)
-
-
-def _entry(name: str):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("retrieval_ranks"), name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
 
 
 def _fast_path(B: int, D: int, z_dtype: torch.dtype, y_dtype: torch.dtype, ptrs: Sequence[int]) -> bool:
@@ -163,25 +148,20 @@ def _prep(z: torch.Tensor, y: torch.Tensor, eps: float):
     nsl = math.ceil(D / PREP_SLICE)
     part = torch.empty(B * nsl * 3, dtype=torch.float32, device=y.device)
     ny, nz, diag = torch.empty((3, B), dtype=torch.float32, device=y.device)
-    err = _entry("retrieval_prep")(y.data_ptr(), z.data_ptr(), pieces.data_ptr() if f32 else None, part.data_ptr(),
-                                   ny.data_ptr(), nz.data_ptr(), diag.data_ptr(), B, D, int(f32), nsl, eps,
-                                   _stream(y.get_device()))
-    _build.check(err, "retrieval_prep")
+    LIB("retrieval_prep", y.device, y, z, pieces if f32 else None, part, ny, nz, diag, B, D, int(f32), nsl, eps)
     return pieces, ny, nz, diag
 
 
 def _products(pieces: torch.Tensor, z: torch.Tensor, ny, nz, diag, eps: float) -> torch.Tensor:
     """The ``wgmma`` body's products and counts on ``_prep``'s outputs."""
     P, B, D = pieces.shape
-    splits = _splits(B, D, _sms(z.device))
+    splits = _splits(B, D, _build.sms(z.device))
     tiles = math.ceil(B / TILE[0]) * math.ceil(B / TILE[1])
     ws = torch.empty(splits * tiles * TILE[0] * TILE[1] if splits > 1 else 0, dtype=torch.float32,
                      device=z.device)
     ranks = torch.zeros(B, dtype=torch.int32, device=z.device)
-    err = _entry("retrieval_ranks_wgmma")(pieces.data_ptr(), z.data_ptr(), ny.data_ptr(), nz.data_ptr(),
-                                          diag.data_ptr(), ranks.data_ptr(), ws.data_ptr() if splits > 1 else None,
-                                          B, D, P, splits, eps, _stream(z.get_device()))
-    _build.check(err, "retrieval_ranks_wgmma")
+    LIB("retrieval_ranks_wgmma", z.device, pieces, z, ny, nz, diag, ranks, ws if splits > 1 else None, B, D, P,
+        splits, eps)
     retrieval_ranks.launches += 1
     retrieval_ranks.route, retrieval_ranks.pieces, retrieval_ranks.splits = "wgmma", P, splits
     return ranks
@@ -193,9 +173,7 @@ def _ranks_kernel(y, z, ny, nz, diag, eps: float) -> torch.Tensor:
     ranks = torch.zeros(B, dtype=torch.int32, device=y.device)
     if B == 0:
         return ranks
-    err = _entry("retrieval_ranks_f32")(y.data_ptr(), z.data_ptr(), ny.data_ptr(), nz.data_ptr(), diag.data_ptr(),
-                                        ranks.data_ptr(), B, D, eps, _stream(y.get_device()))
-    _build.check(err, "retrieval_ranks")
+    LIB("retrieval_ranks_f32", y.device, y, z, ny, nz, diag, ranks, B, D, eps)
     retrieval_ranks.launches += 1
     retrieval_ranks.route, retrieval_ranks.pieces, retrieval_ranks.splits = "f32", None, 1
     return ranks
@@ -206,13 +184,10 @@ def _launch(Z: torch.Tensor, Y: torch.Tensor, eps: float) -> torch.Tensor:
         raise ValueError("retrieval_ranks: Z and Y must lie on one CUDA device")
     B = Z.shape[0]
     z, y = Z.reshape(B, -1).contiguous(), Y.reshape(B, -1).contiguous()
-    with _on(Z.get_device()):
-        if _fast_path(B, z.shape[1], z.dtype, y.dtype, (z.data_ptr(), y.data_ptr())):
-            pieces, ny, nz, diag = _prep(z, y, eps)
-            ranks = _products(pieces, z, ny, nz, diag, eps)
-        else:
-            ranks = _ranks_kernel(*_prepare(Z, Y, eps), eps)
-    return ranks
+    if _fast_path(B, z.shape[1], z.dtype, y.dtype, (z.data_ptr(), y.data_ptr())):
+        pieces, ny, nz, diag = _prep(z, y, eps)
+        return _products(pieces, z, ny, nz, diag, eps)
+    return _ranks_kernel(*_prepare(Z, Y, eps), eps)
 
 
 def retrieval_ranks(Z: torch.Tensor, Y: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

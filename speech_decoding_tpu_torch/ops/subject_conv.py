@@ -48,8 +48,6 @@ writes its cache (the image is made by the captured pack launch).
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import threading
 import weakref
 
@@ -58,30 +56,17 @@ import torch
 from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.ops import _build
-from speech_decoding_tpu_torch.ops.tap_conv import _sms
+from speech_decoding_tpu_torch.ops._build import INT, PTR
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# argument types of each C entry of csrc/subject_matmul.cu, set once when the library loads
-_SIGNATURES = {
-    "subject_matmul_f32": [_P] * 5 + [_I] * 4 + [_P],
-    "subject_matmul_bf16": [_P] * 5 + [_I] * 4 + [_P],
-    "subject_matmul_wg_bf16": [_P] * 5 + [_I] * 5 + [_P],
-    "subject_matmul_pack_bf16": [_P] * 2 + [_I] * 4 + [_P],
-}
-_entries = {}
+LIB = _build.Library("subject_matmul", {
+    "subject_matmul_f32": [PTR] * 5 + [INT] * 4,
+    "subject_matmul_bf16": [PTR] * 5 + [INT] * 4,
+    "subject_matmul_wg_bf16": [PTR] * 5 + [INT] * 5,
+    "subject_matmul_pack_bf16": [PTR] * 2 + [INT] * 4,
+})
 WG_CHANNELS = 272  # weight image: 272 output channels (two wgmma n=136 halves), 272 deep
 _STEPS = WG_CHANNELS // 16  # 16-deep reduction steps of the image
-
-
-def _entry(name: str):
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("subject_matmul"), name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
 
 
 def _fast_path(B: int, T: int, Din: int, Dout: int, x_ptr: int) -> bool:
@@ -135,11 +120,7 @@ def packed_weights(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
         if not (0 < K <= WG_CHANNELS and 0 < N <= WG_CHANNELS):
             raise ValueError(f"the weight image takes K, N <= {WG_CHANNELS}, got {K}, {N}")
         img = w.new_empty((S, _STEPS, WG_CHANNELS // 8, 2, 8, 8))
-        dev = w.get_device()
-        with _on(dev):
-            err = _entry("subject_matmul_pack_bf16")(w.data_ptr(), img.data_ptr(), S, K, N, int(transposed),
-                                                     _stream(dev))
-        _build.check(err, "subject_matmul pack")
+        LIB("subject_matmul_pack_bf16", w.get_device(), w, img, S, K, N, int(transposed))
         packed_weights.packs += 1
     else:
         img = pack_weights(w, transposed)
@@ -217,17 +198,6 @@ class _PinnedIds:
 
 
 _pinned_ids = _PinnedIds()
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # CUDA builds of PyTorch
-
-
-def _stream(device: int) -> int:
-    """The current stream of CUDA device ``device``, as an address."""
-    return _raw_stream(device) if _raw_stream is not None else torch.cuda.current_stream(device).cuda_stream
-
-
-def _on(device: int):
-    """``device`` as the current CUDA device (a no-op when it already is)."""
-    return contextlib.nullcontext() if device == torch.cuda.current_device() else torch.cuda.device(device)
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, sidx: torch.Tensor, transposed: bool, host_ids: int = 0) -> torch.Tensor:
@@ -247,21 +217,16 @@ def _launch(x: torch.Tensor, w: torch.Tensor, sidx: torch.Tensor, transposed: bo
     out = x.new_empty((B, T, Dout))
     if out.numel() == 0:
         return out
-    with _on(dev):
-        stream = _stream(dev)
-        if x.dtype == torch.bfloat16 and _fast_path(B, T, Din, Dout, x.data_ptr()):
-            route = "wgmma"
-            img = packed_weights(w, transposed)
-            err = _entry("subject_matmul_wg_bf16")(x.data_ptr(), img.data_ptr(), sidx.data_ptr(), host_ids,
-                                                   out.data_ptr(), B, T, Din, Dout, _sms(x.device), stream)
-        else:
-            route = "wmma" if x.dtype == torch.bfloat16 else "f32"
-            wk = w.transpose(1, 2).contiguous() if transposed else w
-            # the body copies tiles in 16-byte pieces: realign a tensor that starts mid-allocation
-            x, wk = (t.clone() if t.data_ptr() % 16 else t for t in (x, wk))
-            err = _entry(f"subject_matmul_{_DTYPES[x.dtype]}")(x.data_ptr(), wk.data_ptr(), sidx.data_ptr(), host_ids,
-                                                               out.data_ptr(), B, T, Din, Dout, stream)
-    _build.check(err, f"subject_matmul ({route})")
+    if x.dtype == torch.bfloat16 and _fast_path(B, T, Din, Dout, x.data_ptr()):
+        route = "wgmma"
+        img = packed_weights(w, transposed)
+        LIB("subject_matmul_wg_bf16", dev, x, img, sidx, host_ids, out, B, T, Din, Dout, _build.sms(x.device))
+    else:
+        route = "wmma" if x.dtype == torch.bfloat16 else "f32"
+        wk = w.transpose(1, 2).contiguous() if transposed else w
+        # the body copies tiles in 16-byte pieces: realign a tensor that starts mid-allocation
+        x, wk = (t.clone() if t.data_ptr() % 16 else t for t in (x, wk))
+        LIB(f"subject_matmul_{_DTYPES[x.dtype]}", dev, x, wk, sidx, host_ids, out, B, T, Din, Dout)
     subject_matmul.launches += 1
     subject_matmul.route = route
     return out
@@ -319,7 +284,7 @@ def subject_matmul(x: torch.Tensor, w: torch.Tensor, subject_idxs: torch.Tensor)
             if x.numel() and w.shape[2] and ids.size <= _PinnedIds.SEGMENT:
                 sidx = x.new_empty(ids.shape, dtype=torch.int32)
                 dev = x.get_device()
-                host_ids = _pinned_ids.stage(ids, dev, _stream(dev))
+                host_ids = _pinned_ids.stage(ids, dev, _build.current_stream(dev))
             else:
                 sidx = subject_idxs.to(x.device, torch.int32)
     else:

@@ -44,38 +44,20 @@ fall back on the card.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
 from torch.nn import functional as Fn
 
 from speech_decoding_tpu_torch.ops import _build
-from speech_decoding_tpu_torch.ops.conv_block import _conv3
+from speech_decoding_tpu_torch.ops._build import INT, PTR
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # K2's tile (ci, co) per block: csrc/tap_conv_dw.cu TI, TO (f32) and dwb::TM, dwb::TN (bf16)
 _DW_TILE = {torch.float32: (64, 64), torch.bfloat16: (64, 128)}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# argument types of each C entry, set once when its library loads
-_SIGNATURES = {
-    ("tap_conv_dw", "tap_conv_dw_f32"): [_P] * 4 + [_I] * 6 + [_P],
-    ("tap_conv_dw", "tap_conv_dw_bf16"): [_P] * 4 + [_I] * 8 + [_P],
-    ("tap_conv", "tap_conv_f32"): [_P] * 3 + [_I] * 5 + [_P],
-    ("tap_conv", "tap_conv_bf16"): [_P] * 3 + [_I] * 6 + [_P],
-}
-_entries = {}
-
-
-def _entry(lib: str, name: str):
-    fn = _entries.get((lib, name))
-    if fn is None:
-        fn = getattr(_build.load(lib), name)
-        fn.argtypes = _SIGNATURES[lib, name]
-        fn.restype = ctypes.c_int
-        _entries[lib, name] = fn
-    return fn
+DW_LIB = _build.Library("tap_conv_dw", {"tap_conv_dw_f32": [PTR] * 4 + [INT] * 6,
+                                        "tap_conv_dw_bf16": [PTR] * 4 + [INT] * 8})
+LIB = _build.Library("tap_conv", {"tap_conv_f32": [PTR] * 3 + [INT] * 5, "tap_conv_bf16": [PTR] * 3 + [INT] * 6})
 
 
 def pad_channels(t: torch.Tensor) -> torch.Tensor:
@@ -109,21 +91,12 @@ def tap_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, dilation: int) -> torch.
     return torch.stack(taps)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _sms(device: torch.device) -> int:
-    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
-
-
 def _splits(B: int, Cin: int, Cout: int, device: torch.device, dtype: torch.dtype) -> int:
     """Batch-row splits. f32: about three blocks per SM over the whole grid;
     bf16 (one block per SM): as many as one wave holds."""
     ti, to = _DW_TILE[dtype]
     tiles = math.ceil(Cin / ti) * math.ceil(Cout / to)
-    sms = _sms(device)
+    sms = _build.sms(device)
     n = math.ceil(3 * sms / tiles) if dtype == torch.float32 else sms // tiles
     return max(1, min(B, n))
 
@@ -144,17 +117,11 @@ def _launch(x: torch.Tensor, g: torch.Tensor, d: int, padded=None) -> torch.Tens
     ti, to = _DW_TILE[x.dtype]
     part = torch.empty((nsplit, 3, math.ceil(Cin / ti) * ti, math.ceil(Cout / to) * to),
                        dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if x.dtype == torch.float32:
-            err = _entry("tap_conv_dw", "tap_conv_dw_f32")(
-                x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, Cin, Cout, d, nsplit, stream)
-        else:
-            xp, gp = pad_channels(x) if padded is None else padded, pad_channels(g)
-            err = _entry("tap_conv_dw", "tap_conv_dw_bf16")(
-                xp.data_ptr(), gp.data_ptr(), part.data_ptr(), out.data_ptr(), B, T, Cin, Cout, xp.shape[2],
-                gp.shape[2], d, nsplit, stream)
-    _build.check(err, f"tap_conv_dw d={d}")
+    if x.dtype == torch.float32:
+        DW_LIB("tap_conv_dw_f32", x.device, x, g, part, out, B, T, Cin, Cout, d, nsplit)
+    else:
+        xp, gp = pad_channels(x) if padded is None else padded, pad_channels(g)
+        DW_LIB("tap_conv_dw_bf16", x.device, xp, gp, part, out, B, T, Cin, Cout, xp.shape[2], gp.shape[2], d, nsplit)
     tap_conv_dw.launches += 1
     return out
 
@@ -181,10 +148,23 @@ def tap_conv_dw(x: torch.Tensor, g: torch.Tensor, dilation: int, padded=None) ->
 tap_conv_dw.launches = 0  # kernel launches (CUDA tensors only)
 
 
+def conv3(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, T, Cin) x (3, Cin, Cout) dilated-by-d 'SAME' conv as 3 shifted
+    matmuls, zero padding at the edges, f32 accumulation, f32 out."""
+    T = x.shape[-2]
+    xp = Fn.pad(x.float(), (0, 0, d, d))
+    wf = w.float()
+    y = None
+    for j in range(3):
+        yj = xp[:, j * d : j * d + T] @ wf[j]
+        y = yj if y is None else y + yj
+    return y
+
+
 def tap_conv_plain(x: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
     """Reference: the three shifted tap products summed in f32, one cast to
     x's dtype. x (B, T, Cin), w (3, Cin, Cout) -> (B, T, Cout)."""
-    return _conv3(x, w, dilation).to(x.dtype)
+    return conv3(x, w, dilation).to(x.dtype)
 
 
 def _launch_conv(x: torch.Tensor, w: torch.Tensor, d: int, transposed: bool) -> torch.Tensor:
@@ -197,17 +177,12 @@ def _launch_conv(x: torch.Tensor, w: torch.Tensor, d: int, transposed: bool) -> 
     B, T, Cin = x.shape
     Cout = w.shape[1] if transposed else w.shape[2]
     y = torch.empty((B, T, Cout), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if x.dtype == torch.float32:
-            wf = flip_taps(w) if transposed else w
-            err = _entry("tap_conv", "tap_conv_f32")(x.data_ptr(), wf.data_ptr(), y.data_ptr(), B, T, Cin, Cout, d,
-                                                     stream)
-        else:
-            xp, wk = pad_channels(x), pack_weights(w, transposed)
-            err = _entry("tap_conv", "tap_conv_bf16")(xp.data_ptr(), wk.data_ptr(), y.data_ptr(), B, T,
-                                                      xp.shape[2], Cout, d, _sms(x.device), stream)
-    _build.check(err, f"tap_conv d={d}")
+    if x.dtype == torch.float32:
+        LIB("tap_conv_f32", x.device, x, flip_taps(w) if transposed else w, y, B, T, Cin, Cout, d)
+    else:
+        xp = pad_channels(x)
+        LIB("tap_conv_bf16", x.device, xp, pack_weights(w, transposed), y, B, T, xp.shape[2], Cout, d,
+            _build.sms(x.device))
     tap_conv.launches += 1
     return y
 

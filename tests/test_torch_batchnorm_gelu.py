@@ -4,16 +4,12 @@ train forward then GELU give the bits of the BatchNorm formulas as written
 before the op (output, running statistics, the gradients of y, the skip,
 scale and bias; a remat recomputation leaves the statistics alone);
 ``ConvBlock`` on every path that keeps today's ops (the CPU, a data-parallel
-group, eval mode, f32) gives the bits of the formulas before the op; the
-ctypes signatures against ``csrc/batchnorm_gelu.cu``; and
+group, eval mode, f32) gives the bits of the formulas before the op; and
 ``BN_roofline.train``'s arithmetic. The kernels themselves run on the
 card: ``test_torch_batchnorm_gelu_cuda.py``.
 """
 
 import copy
-import ctypes
-import os
-import re
 from types import SimpleNamespace
 
 import pytest
@@ -22,7 +18,6 @@ torch = pytest.importorskip("torch")
 
 from port_bench import cells  # noqa: E402
 from speech_decoding_tpu_torch.models import brain_encoder as be  # noqa: E402
-from speech_decoding_tpu_torch.ops import _build  # noqa: E402
 from speech_decoding_tpu_torch.ops import batchnorm_gelu as bg  # noqa: E402
 
 B, T, C = 3, 11, 16
@@ -159,25 +154,6 @@ def test_conv_block_keeps_todays_bits_off_the_card(monkeypatch, k, dtype, train,
         assert torch.equal(p.grad, q.grad), name
     for (name, b), c in zip(blk.named_buffers(), ref.buffers()):
         assert torch.equal(b, c), name
-
-
-def _c_entries():
-    """{entry name: [parameter types]} of csrc/batchnorm_gelu.cu."""
-    with open(os.path.join(_build.SRC_DIR, "batchnorm_gelu.cu")) as f:
-        src = f.read()
-    return {name: [re.sub(r"\s+\w+$", "", p.strip()) for p in params.split(",")]
-            for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)}
-
-
-@pytest.mark.parametrize("name", sorted(bg._SIGNATURES))
-def test_ctypes_signatures_match_the_c_entries(name):
-    """One c_void_p per pointer, one c_int per int and one c_double per
-    double of the C entry, in order."""
-    kind = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
-            "double": ctypes.c_double}
-    entries = _c_entries()
-    assert sorted(entries) == sorted(bg._SIGNATURES)
-    assert [kind[p] for p in entries[name]] == bg._SIGNATURES[name], (name, entries[name])
 
 
 def test_the_module_routes_no_cpu_tensor_to_the_kernels():

@@ -1,13 +1,12 @@
 """The host-side preparation of K4's routes (``ops.conv_block``), on CPU
 tensors at small widths: the bf16 weight images the wgmma route reads (conv0
 and conv1 K-major through ``tap_conv.pack_weights``, conv2 GLU-interleaved
-through ``conv_block_train.glu_pack``), applied by a plain torch conv
+through ``glu_pack``), applied by a plain torch conv
 (``F.conv1d``) against the plain version's convs; conv0's zero depth
 padding; the staged tuple (``prepare_fused_stack`` on the port's
 ``ConvBlock``) against the JAX Pallas ``conv_block_fused`` in interpret mode;
 the bf16 tuple read back by ``conv_block_plain`` bit for bit as the same
-values staged in f32; the route rule; and every ``_SIGNATURES`` list against
-its C declaration in ``csrc/conv_block.cu``. Convs compare in f32 at rtol
+values staged in f32; and the route rule. Convs compare in f32 at rtol
 and atol 1e-5 (sums of ~100 products of order 1 in another order); the
 block against JAX at rtol 1e-4, atol 1e-5, as tests/test_torch_ops.py
 holds the plain version."""
@@ -16,19 +15,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import ctypes  # noqa: E402
-import os  # noqa: E402
-import re  # noqa: E402
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from torch.nn import functional as Fn  # noqa: E402
 
 from speech_decoding_tpu.ops.pallas import conv_block as jcb  # noqa: E402
 from speech_decoding_tpu_torch.models.brain_encoder import ConvBlock  # noqa: E402
-from speech_decoding_tpu_torch.ops import _build  # noqa: E402
 from speech_decoding_tpu_torch.ops import conv_block as tcb  # noqa: E402
-from speech_decoding_tpu_torch.ops.conv_block import _conv3  # noqa: E402
+from speech_decoding_tpu_torch.ops.tap_conv import conv3  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -62,7 +56,7 @@ def test_kmajor_image_reproduces_the_plain_conv(cin, C, d):
     w = _bf16_values(_rand(rng, 3, cin, C) / np.sqrt(3 * cin))
     wk = tcb.stage_weight(w, torch.bfloat16)
     assert wk.dtype == torch.bfloat16 and wk.shape == (3, C, tcb.conv0_depth(cin, torch.bfloat16))
-    torch.testing.assert_close(_conv1d_on_image(x, wk, d), _conv3(x, w, d), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(_conv1d_on_image(x, wk, d), conv3(x, w, d), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("C,d", [(16, 2), (8, 16), (320, 2)])
@@ -76,7 +70,7 @@ def test_glu_image_reproduces_the_plain_conv(C, d):
     w2g = tcb.stage_weight(w2, torch.bfloat16, glu=True)
     assert w2g.shape == (3, 2 * C, C) and w2g.is_contiguous()
     y = _conv1d_on_image(h, w2g, d)
-    torch.testing.assert_close(torch.cat([y[..., 0::2], y[..., 1::2]], -1), _conv3(h, w2, d), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(torch.cat([y[..., 0::2], y[..., 1::2]], -1), conv3(h, w2, d), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("cin", [13, 16, 270])
@@ -181,16 +175,3 @@ def test_cpu_call_launches_nothing():
         out = tcb.conv_block_fused(torch.zeros(1, 5, 16, dtype=torch.bfloat16), *staged, k=1)
     assert out.shape == (1, 5, 16)
     assert (tcb.conv_block_fused.launches, tcb.conv_block_fused.route) == (before, route)
-
-
-@pytest.mark.parametrize("name", sorted(tcb._SIGNATURES))
-def test_ctypes_signatures_match_the_c_entries(name):
-    """Each entry's argtypes list one c_void_p per pointer and one c_int per
-    int of its C declaration in csrc/conv_block.cu, in order."""
-    kind = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
-    with open(os.path.join(_build.SRC_DIR, "conv_block.cu")) as f:
-        src = f.read()
-    assert sorted(re.findall(r'extern "C" int (\w+)\(', src)) == sorted(tcb._SIGNATURES)
-    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
-    params = [re.sub(r"\s+\w+$", "", p.strip()) for p in m.group(1).split(",")]
-    assert [kind[p] for p in params] == tcb._SIGNATURES[name], params

@@ -4,8 +4,7 @@ on CPU tensors at small widths: the GLU-interleaved K-major packing of w2
 B3's K2 launch share (``x_padded``) and B3's 270-channel dx from packed w0ᵀ,
 the partial-sum scratch against each route's tile, the route rule, the tap3
 stages that stay K7's bitwise partner, K7's route rule, scratch and tile
-walk (which F3 tiles each F1 tile reads, all claimed before it), and every
-``_SIGNATURES`` list against its C declaration in ``csrc/conv_block_train.cu``. Convs here are
+walk (which F3 tiles each F1 tile reads, all claimed before it). Convs here are
 the plain version (``tap_conv_plain``) on the prepared operands, sliced
 back, held against the plain version on the originals (f32, rtol and atol
 1e-5: sums of ~100 products of order 1)."""
@@ -14,13 +13,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import ctypes  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
 
 import numpy as np  # noqa: E402
 
 from speech_decoding_tpu_torch.ops import _build  # noqa: E402
+from speech_decoding_tpu_torch.ops import conv_block as tcb  # noqa: E402
 from speech_decoding_tpu_torch.ops import conv_block_train as cbt  # noqa: E402
 from speech_decoding_tpu_torch.ops.tap_conv import (  # noqa: E402
     flip_taps, pack_weights, pad_channels, tap_conv_dw, tap_conv_dw_plain, tap_conv_plain,
@@ -48,7 +47,7 @@ def test_glu_pack_layout_and_inverse(cin, C):
     the input channels are zero-padded to a multiple of 8; glu_unpack
     undoes it bit for bit."""
     w2 = _rand(np.random.default_rng(cin + C), 3, cin, 2 * C)
-    wk = cbt.glu_pack(w2)
+    wk = tcb.glu_pack(w2)
     cin8 = -(-cin // 8) * 8
     assert wk.shape == (3, 2 * C, cin8) and wk.is_contiguous()
     assert torch.equal(wk[:, 0::2, :cin], w2[:, :, :C].transpose(1, 2))
@@ -67,7 +66,7 @@ def test_glu_conv_on_packed_weights(d, cin, C):
     h = _rand(rng, 2, T, cin)
     w2 = 0.2 * _rand(rng, 3, cin, 2 * C)
     want = tap_conv_plain(h, w2, d)
-    got = tap_conv_plain(pad_channels(h), cbt.glu_pack(w2).transpose(1, 2), d)
+    got = tap_conv_plain(pad_channels(h), tcb.glu_pack(w2).transpose(1, 2), d)
     torch.testing.assert_close(got[..., 0::2], want[..., :C], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got[..., 1::2], want[..., C:], rtol=1e-5, atol=1e-5)
 
@@ -177,30 +176,6 @@ def test_tile_stages_take_the_plain_version_on_the_cpu(stage):
         assert torch.equal(a, b)
     assert cbt.TILE[stage].launches == before and cbt.conv_block_train.route is None
     assert cbt.f3_tile is cbt.TILE["F3"] and cbt.f1_tile is cbt.TILE["F1"]
-
-
-def _c_entries():
-    """{entry name: [parameter types]} of csrc/conv_block_train.cu, the
-    ENTRIES macro expanded for f32 and bf16."""
-    with open(os.path.join(_build.SRC_DIR, "conv_block_train.cu")) as f:
-        src = f.read().replace("\\\n", "\n")
-    out = {}
-    for name, params in re.findall(r'extern "C" int ([\w#]+)\(([^)]*)\)', src):
-        types = [re.sub(r"\s+\w+$", "", p.strip()) for p in params.split(",")]
-        for suf in ("f32", "bf16") if name.endswith("##SUF") else ("",):
-            out[name.replace("##SUF", suf)] = types
-    return out
-
-
-@pytest.mark.parametrize("name", sorted(cbt._SIGNATURES))
-def test_ctypes_signatures_match_the_c_entries(name):
-    """One c_void_p per pointer and one c_int per int of the C entry, in
-    order (a list one int short segfaulted the host once)."""
-    kind = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
-    entries = _c_entries()
-    assert name in entries, name
-    assert [kind[p] for p in entries[name]] == cbt._SIGNATURES[name], (name, entries[name])
-    assert sorted(entries) == sorted(cbt._SIGNATURES)
 
 
 # -- K7 (f31): the route rule, the scratch and the tile walk of the wgmma route --------

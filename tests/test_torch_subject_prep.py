@@ -1,8 +1,8 @@
 """The host-side preparation of K1's ``wgmma`` route (``ops.subject_conv``),
 on CPU tensors: the weight image (``pack_weights``, forward and the dX's
 Wᵀ) against ``Fn.pad`` of W and Wᵀ, the pack cache (``packed_weights``),
-the domain rule that picks the route (``_fast_path``), the ctypes
-signatures against the C entries, and the host-side id check. The product
+the domain rule that picks the route (``_fast_path``) and the host-side id
+check. The product
 read through the image equals JAX's Pallas ``subject_matmul`` in interpret
 mode (f32, atol 1e-5 on values of order 10)."""
 
@@ -10,16 +10,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import ctypes  # noqa: E402
-import os  # noqa: E402
-import re  # noqa: E402
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from torch.nn import functional as Fn  # noqa: E402
 
 from speech_decoding_tpu.ops.pallas.subject_conv import subject_matmul as j_subject_matmul  # noqa: E402
-from speech_decoding_tpu_torch.ops import _build  # noqa: E402
 from speech_decoding_tpu_torch.ops import subject_conv as sc  # noqa: E402
 
 torch.set_num_threads(1)
@@ -125,20 +120,6 @@ def test_product_through_the_image_matches_jax():
     got_dx = torch.einsum("bto,boi->bti", Fn.pad(tg, (0, wtpad.shape[1] - dout)), wtpad[tids.long()])[..., :din]
     _, vjp = jax.vjp(lambda a: j_subject_matmul(a, jnp.asarray(w), jnp.asarray(ids), True), jnp.asarray(x))
     np.testing.assert_allclose(got_dx.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), rtol=0, atol=1e-5)
-
-
-def test_ctypes_signatures_match_the_c_entries():
-    """Each entry's argtypes list one c_void_p per pointer and one c_int per
-    int of its C declaration in csrc/subject_matmul.cu, in order."""
-    kind = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
-    with open(os.path.join(_build.SRC_DIR, "subject_matmul.cu")) as f:
-        src = f.read()
-    declared = re.findall(r'extern "C" int (subject_matmul_\w+)\(', src)
-    assert sorted(declared) == sorted(sc._SIGNATURES)
-    for name, argtypes in sc._SIGNATURES.items():
-        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
-        params = [re.sub(r"\s+\w+$", "", p.strip()) for p in m.group(1).split(",")]
-        assert [kind[p] for p in params] == argtypes, (name, params)
 
 
 @pytest.mark.parametrize("bad", [-1, 4])

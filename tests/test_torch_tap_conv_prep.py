@@ -11,18 +11,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import ctypes  # noqa: E402
-import os  # noqa: E402
-import re  # noqa: E402
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from speech_decoding_tpu.ops.pallas.tap_conv import tap_conv as j_tap_conv  # noqa: E402
 from speech_decoding_tpu.ops.pallas.tap_conv import tap_conv_dw as j_tap_conv_dw  # noqa: E402
-from speech_decoding_tpu_torch.ops import _build  # noqa: E402
 from speech_decoding_tpu_torch.ops.tap_conv import (  # noqa: E402
-    _SIGNATURES, flip_taps, pack_weights, pad_channels, tap_conv_dw_plain, tap_conv_plain, tap_conv_transposed,
+    flip_taps, pack_weights, pad_channels, tap_conv_dw_plain, tap_conv_plain, tap_conv_transposed,
 )
 
 torch.set_num_threads(1)
@@ -119,18 +114,3 @@ def test_tap_conv_transposed_checks_shapes(shape):
     else:
         with pytest.raises(ValueError, match="tap_conv shapes"):
             tap_conv_transposed(x, w, 2)
-
-
-def test_ctypes_signatures_match_the_c_entries():
-    """Each wrapper's argtypes list one c_void_p per pointer and one c_int
-    per int of its C entry in csrc/, in order (ctypes converts untyped or
-    mistyped arguments silently, and a stream passed as a 32-bit int only
-    works while it is 0)."""
-    kind = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int}
-    for (lib, name), argtypes in _SIGNATURES.items():
-        with open(os.path.join(_build.SRC_DIR, f"{lib}.cu")) as f:
-            src = f.read()
-        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
-        assert m, name
-        params = [re.sub(r"\s+\w+$", "", p.strip()) for p in m.group(1).split(",")]
-        assert [kind[p] for p in params] == argtypes, (name, params)
