@@ -6,7 +6,7 @@
 What it does, in order (one JSON object per line on stdout):
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. builds the seven hand-written CUDA kernel libraries (eight kernels: K7
+  2. builds the eight hand-written CUDA kernel libraries (nine kernels: K7
      shares K6's source) from
      ``speech_decoding_tpu_torch/csrc`` with ``nvcc`` (one process per source,
      all started together) and times it;
@@ -174,6 +174,16 @@ What it does, in order (one JSON object per line on stdout):
      tests' tolerances, raising past one; then ms by CUDA events and on the
      device, each kernel apart, beside the bytes' bound and the plain
      version's eager chain), one ``tool`` line with its launches;
+  12c. GLU, the module path's ConvBlock GLU: ``speech_decoding_tpu_torch.tools
+     .bench_glu`` at the benchmark cell's shape (Y 256 × 360 × 640): h and dY
+     against the f32 formulas within one bf16 rounding (raising past it),
+     then one block's forward and backward by CUDA events and on the device
+     (each kernel apart), beside the bytes' bound (0.141 ms), the plain
+     chain's same two times and the library's (``torch.nn.functional.glu``),
+     one ``tool`` line
+     with its launches; GLU's launches are counted on every path: 10 a
+     module-path bf16 train step (15 with remat), 5 an eval forward, 0 on the
+     fused, serving and f32 paths;
   13. the training loop, each path with every counter set to 0 just before
      and read just after: ``trainer``, the port's ``tools/scale_run`` at the
      flagship (4 epochs of 100 updates over a device-resident pool of 512 +
@@ -251,7 +261,7 @@ What it does, in order (one JSON object per line on stdout):
   20. ``tools.ab_int8_retrieval`` once: 4,096 flagship candidates
      (D = 368,640) and a B=64 query batch, the port's chunked bf16 upcast
      against the whole-bank upcast, int8 × int8 → int32 chunks and f32;
-  14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, BN, each with its
+  14. the ``kernels`` summary line (K1, K4, K2, K3, K5, K6, K7, BN, GLU, each with its
      launches by path and device ms; K7 with its body, its bitwise partner
      and its tap3 route), the card line again, and last ``{"ok": true,
      "device": {...}}``.
@@ -700,7 +710,7 @@ def cli_phase(seed: int, reset_counts, read_counts, expect) -> dict:
             # the module step replays its graph from its second call on (one batch size)
             launched = launched_steps(steps, made)
             want = expect(subject_matmul=2 * launched + evals, tap_conv_dw=15 * launched, retrieval_ranks=evals,
-                          batchnorm_gelu=BN_STEP * launched)
+                          batchnorm_gelu=BN_STEP * launched, glu=GLU_STEP * launched + GLU_FORWARD * evals)
             if (launched != 2 or paths[name] != want
                     or not all(np.isfinite([h[k] for h in hist for k in ("train_loss", "test_loss")]))):
                 raise AssertionError(f"{name}: launches {paths[name]} in {launched} launched steps, expected {want}; "
@@ -772,7 +782,8 @@ def cli_phase(seed: int, reset_counts, read_counts, expect) -> dict:
         emit(check="cli evaluate vs the last epoch's eval", evaluate=out, trained={k: last[k] for k in (
              "epoch", "test_loss", "testTop1acc", "testTop10acc")}, agree=agree, rel_bound=2e-4, abs_bound=1e-6,
              seconds=eval_s, launches=paths["cli_evaluate"])
-        if not all(agree.values()) or paths["cli_evaluate"] != expect(subject_matmul=1, retrieval_ranks=1):
+        if not all(agree.values()) or paths["cli_evaluate"] != expect(subject_matmul=1, retrieval_ranks=1,
+                                                                           glu=GLU_FORWARD):
             raise AssertionError(f"evaluate: {agree}, launches {paths['cli_evaluate']}")
 
         # -- the eval step alone on the device-resident test batch (timed; not a path)
@@ -837,16 +848,18 @@ DP_TRAINER_STEPS = 12
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by name (K6 one per stage, K7
-    its own, BN's kernels all under one), of this process."""
+    its own, BN's kernels all under one, GLU's two under one), of this
+    process."""
     from speech_decoding_tpu_torch.ops import conv_block_train as cbt
     from speech_decoding_tpu_torch.ops.batchnorm_gelu import bn_gelu_train
     from speech_decoding_tpu_torch.ops.conv_block import conv_block_fused
+    from speech_decoding_tpu_torch.ops.glu import glu
     from speech_decoding_tpu_torch.ops.retrieval import retrieval_ranks
     from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
     from speech_decoding_tpu_torch.ops.tap_conv import tap_conv, tap_conv_dw
 
     return {"subject_matmul": subject_matmul, "conv_block_fused": conv_block_fused, "tap_conv_dw": tap_conv_dw,
-            "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv, "batchnorm_gelu": bn_gelu_train,
+            "retrieval_ranks": retrieval_ranks, "tap_conv": tap_conv, "batchnorm_gelu": bn_gelu_train, "glu": glu,
             **{f"conv_block_train.{name}": fn for name, fn in cbt.STAGES.items()},
             **{f"conv_block_train.{name}_tile": fn for name, fn in cbt.TILE.items()},
             "conv_block_train.F31": cbt.f31, "conv_block_train.F31_tile": cbt.f31_tile}
@@ -888,12 +901,19 @@ def made_train_steps():
 KERNEL_RECORDS = {"subject_matmul": re.compile(r"\bsubject_matmul_(wg|tc|f32)_kernel"),
                   "tap_conv_dw": re.compile(r"\btap_conv_dw_(bf16|f32)_kernel"),
                   "tap_conv": re.compile(r"\btap_conv_bf16_kernel"),
-                  "batchnorm_gelu": re.compile(r"\bbngelu_\w+_kernel")}
+                  "batchnorm_gelu": re.compile(r"\bbngelu_\w+_kernel"),
+                  "glu": re.compile(r"\bglu_(fwd|bwd)_kernel")}
 
 # BN's kernels a module-path bf16 train step with no group launches: ten
 # layers (two a ConvBlock), three kernels forward and three back; with remat
 # the forward runs again in the backward's recomputation
 BN_STEP, BN_REMAT_STEP = 60, 90
+
+# GLU's kernels: one forward and one backward a ConvBlock on every module
+# path in bf16 (any group, any mode), so 10 a train step, 15 with remat (the
+# forward again in the recomputation), 5 an eval forward; 0 on the fused,
+# serving and f32 paths
+GLU_STEP, GLU_REMAT_STEP, GLU_FORWARD = 10, 15, 5
 
 
 def _reset_counts() -> None:
@@ -1187,7 +1207,8 @@ def data_parallel_phase(step_ms: dict, expect) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     k6 = {f"conv_block_train.{st}": 5 for st in ("F1", "F2", "F3", "B1", "B2", "B3")}
-    per_step = {"module": expect(subject_matmul=2, tap_conv_dw=15),
+    # bf16 steps: a group's BatchNorm is TorchBatchNorm's, its GLU the op
+    per_step = {"module": expect(subject_matmul=2, tap_conv_dw=15, glu=GLU_STEP),
                 "fused": expect(subject_matmul=2, tap_conv_dw=15, **k6)}
 
     def times(counts, n):
@@ -1683,11 +1704,16 @@ def memory_scaling_phase(expect) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     # one process (BN's kernels), and plain or remat
-    per_step = {"gemm_pdw": (expect(subject_matmul=2, tap_conv_dw=15, batchnorm_gelu=BN_STEP),
-                             expect(subject_matmul=2, tap_conv_dw=15, batchnorm_gelu=BN_REMAT_STEP)),
-                "pallas_taps": (expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30, batchnorm_gelu=BN_STEP),
-                                expect(subject_matmul=2, tap_conv_dw=15, tap_conv=45, batchnorm_gelu=BN_REMAT_STEP))}
-    group_step = expect(subject_matmul=2, tap_conv_dw=15)  # a group's BatchNorm is TorchBatchNorm's
+    per_step = {"gemm_pdw": (expect(subject_matmul=2, tap_conv_dw=15, batchnorm_gelu=BN_STEP, glu=GLU_STEP),
+                             expect(subject_matmul=2, tap_conv_dw=15, batchnorm_gelu=BN_REMAT_STEP,
+                                    glu=GLU_REMAT_STEP)),
+                "pallas_taps": (expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30, batchnorm_gelu=BN_STEP,
+                                       glu=GLU_STEP),
+                                expect(subject_matmul=2, tap_conv_dw=15, tap_conv=45, batchnorm_gelu=BN_REMAT_STEP,
+                                       glu=GLU_REMAT_STEP))}
+    # a group's BatchNorm is TorchBatchNorm's, its GLU the op; plain and remat
+    group_step = {"plain": expect(subject_matmul=2, tap_conv_dw=15, glu=GLU_STEP),
+                  "remat": expect(subject_matmul=2, tap_conv_dw=15, glu=GLU_REMAT_STEP)}
     decodes = expect(subject_matmul=2, conv_block_fused=10)  # one checked B=64 decode a store dtype
     paths = {}
 
@@ -1756,7 +1782,7 @@ def memory_scaling_phase(expect) -> dict:
                  r["remat_f32_b16_group"])
     g = a["group"]
     for name, r in g.items():
-        if r["launches"] != times(group_step, 5):
+        if r["launches"] != times(group_step[name], 5):
             raise AssertionError(f"remat NCCL group step ({name}): launches {r['launches']}")
     if g["plain"]["collectives_per_step"] != g["remat"]["collectives_per_step"]:
         raise AssertionError(f"the remat group step's collectives differ: {g}")
@@ -2095,6 +2121,7 @@ def model_axis_phase(expect) -> dict:
     per_step = {"module": expect(subject_matmul=2, tap_conv_dw=15),
                 "fused": expect(subject_matmul=2, tap_conv_dw=15, F1=5, F2=5, F3=5, B1=5, B2=5, B3=5),
                 "pallas_taps": expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30)}
+    bf16_step = {**per_step["module"], "glu": GLU_STEP}  # the f32 checks run the plain GLU, bf16 steps the op
     model_calls = {"module": {"model.all_reduce": 20, "model.all_gather": 19},
                    "fused": {"model.all_reduce": 5, "model.all_gather": 19},
                    "pallas_taps": {"model.all_reduce": 5, "model.all_gather": 19}}
@@ -2137,7 +2164,7 @@ def model_axis_phase(expect) -> dict:
     one_losses = a[0]["one_process_losses"]
     for r in a:
         bf = r["bf16"]
-        if bf["launches"] != {k: 3 * v for k, v in per_step["module"].items()}:
+        if bf["launches"] != {k: 3 * v for k, v in bf16_step.items()}:
             raise AssertionError(f"model axis 1x2 bf16: launches {bf['launches']}")
         if bf["collectives_per_step"] != {**data_calls, **model_calls["module"]}:
             raise AssertionError(f"model axis 1x2 bf16: collectives {bf['collectives_per_step']}")
@@ -2184,7 +2211,7 @@ def model_axis_phase(expect) -> dict:
         # so none of its timed steps launches from the host
         launched = 0 if name == "one_process" else 3
         if c[name]["launched_steps"] != launched or \
-                c[name]["launches"] != {k: launched * v for k, v in per_step["module"].items()}:
+                c[name]["launches"] != {k: launched * v for k, v in bf16_step.items()}:
             raise AssertionError(f"model axis NCCL 1x1 {name}: launches {c[name]['launches']} in "
                                  f"{c[name]['launched_steps']} launched steps")
     paths["ma_nccl_1x1"] = c["grid"]["launches"]
@@ -2256,6 +2283,7 @@ def main() -> int:
         )
         from speech_decoding_tpu_torch.serving import DecoderServer, decode_request
         from speech_decoding_tpu_torch.tools import bench_batchnorm_gelu as bn_tool
+        from speech_decoding_tpu_torch.tools import bench_glu as glu_tool
         from speech_decoding_tpu_torch.tools import bench_cross_block_merge as merge_tool
         from speech_decoding_tpu_torch.tools import scale_run
         from speech_decoding_tpu_torch.training import (
@@ -2278,7 +2306,7 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t = time.perf_counter()
     libs = _build.build(["subject_matmul", "conv_block", "tap_conv_dw", "retrieval_ranks", "tap_conv",
-                         "conv_block_train", "batchnorm_gelu"])
+                         "conv_block_train", "batchnorm_gelu", "glu"])
     emit(phase="build", seconds=time.perf_counter() - t, libraries=[os.path.relpath(p, ROOT) for p in libs])
 
     # every path's run sets all launch counters to 0 just before and reads them all just after
@@ -3023,7 +3051,8 @@ def main() -> int:
         return cfg_, enc_, step_, state_, launches, per_step_
 
     cfg, enc_t, step, state, train_launches, per_step = train_path(
-        "train", "gemm_pdw", False, 20, expect(subject_matmul=2, tap_conv_dw=15, batchnorm_gelu=BN_STEP), True)
+        "train", "gemm_pdw", False, 20,
+        expect(subject_matmul=2, tap_conv_dw=15, batchnorm_gelu=BN_STEP, glu=GLU_STEP), True)
 
     # -- 9b. the fused train path (K6) ------------------------------------------
     k6_step = dict(F1=5, F2=5, F3=5, B1=5, B2=5, B3=5)
@@ -3041,7 +3070,7 @@ def main() -> int:
     # -- 9c. the pallas_taps train path (K5) ---------------------------------
     cfg_taps, _, _, tstate, taps_launches, taps_per_step = train_path(
         "taps_train", "pallas_taps", False, 10,
-        expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30, batchnorm_gelu=BN_STEP), False)
+        expect(subject_matmul=2, tap_conv_dw=15, tap_conv=30, batchnorm_gelu=BN_STEP, glu=GLU_STEP), False)
 
     # -- 10. the eval paths: chunked eval over 2048 segments ----------------------
     Xe = torch.randn(NE, T, C, generator=gdev, device=dev) * 10
@@ -3072,7 +3101,7 @@ def main() -> int:
             raise AssertionError(f"{phase} metrics out of range: {ev}")
         if (retrieval_ranks.route, retrieval_ranks.pieces) != ("wgmma", 3):  # bf16 embeddings, f32 targets
             raise AssertionError(f"{phase}: K3 took {retrieval_ranks.route} with {retrieval_ranks.pieces} pieces")
-        want = expect(subject_matmul=forwards, retrieval_ranks=1, **more)
+        want = expect(subject_matmul=forwards, retrieval_ranks=1, glu=GLU_FORWARD * forwards, **more)
         if eval_paths[phase] != want:
             raise AssertionError(f"{phase} launches: {eval_paths[phase]}, expected {want}")
     eval_launches = eval_paths["eval"]
@@ -3446,6 +3475,20 @@ def main() -> int:
     if bn_launches != expect(batchnorm_gelu=bn_launches["batchnorm_gelu"]) or bn_launches["batchnorm_gelu"] < 1:
         raise AssertionError(f"the BN tool launched other kernels or none of its own: {bn_launches}")
 
+    # -- 12c. GLU: the port's bench_glu ----------------------------------------------------------
+    # one ConvBlock's GLU at the benchmark cell's shape: h and dY against the f32 formulas within
+    # one bf16 rounding (raises past it), then the op's forward and backward by CUDA events and on
+    # the device (each kernel apart) beside the bound (0.141 ms), the plain chain's same two times and
+    # the library's (torch.nn.functional.glu: ATen's glu and glu_backward)
+    torch.cuda.synchronize()
+    reset_counts()
+    glu_run = glu_tool.run("cuda")
+    glu_launches = read_counts()
+    emit(tool="speech_decoding_tpu_torch.tools.bench_glu", **glu_run, launches=glu_launches)
+    if glu_launches != expect(glu=glu_launches["glu"]) or glu_launches["glu"] < 1 or glu_run["launches_a_block"] != 2:
+        raise AssertionError(f"the GLU tool launched other kernels or not its own two a block: {glu_launches}, "
+                             f"{glu_run['launches_a_block']} a block")
+
     # -- 13. the training loop: the port's scale run at the flagship ---------------------
     # Trainer.run_epoch over a device-resident world (scan_steps 8), eval of
     # the 64 held-out segments every epoch, checkpoints in a temporary
@@ -3483,7 +3526,7 @@ def main() -> int:
         # the module step replays its graph from its second call on
         launched = launched_steps(steps, [trainer.train_step])
         want = expect(subject_matmul=2 * launched + SR_EPOCHS, tap_conv_dw=15 * launched, retrieval_ranks=SR_EPOCHS,
-                      batchnorm_gelu=BN_STEP * launched)
+                      batchnorm_gelu=BN_STEP * launched, glu=GLU_STEP * launched + GLU_FORWARD * SR_EPOCHS)
         if launched != 2 or trainer_launches != want:
             raise AssertionError(f"trainer launches: {trainer_launches} in {launched} launched steps, "
                                  f"expected {want}")
@@ -3509,7 +3552,7 @@ def main() -> int:
              train_loss=out_f["train_loss"], testTop10acc=out_f["testTop10acc"],
              segments_per_s=out_f["train_segments_per_sec"], epoch_seconds=fused_tr.last_epoch_seconds,
              launches=fused_trainer_launches)
-        want = expect(subject_matmul=2 * n_fused + 1, tap_conv_dw=15 * n_fused, retrieval_ranks=1,
+        want = expect(subject_matmul=2 * n_fused + 1, tap_conv_dw=15 * n_fused, retrieval_ranks=1, glu=GLU_FORWARD,
                       **dict.fromkeys(cbt.STAGES, 5 * n_fused))
         if fused_trainer_launches != want or not np.isfinite(out_f["train_loss"]):
             raise AssertionError(f"trainer_fused launches: {fused_trainer_launches}, expected {want}; {out_f}")
@@ -3558,7 +3601,7 @@ def main() -> int:
         # each Trainer's module step replays its graph from its second call on
         launched = launched_steps(16 + 24, [pre_tr.train_step, res_tr.train_step])
         want = expect(subject_matmul=2 * launched + 1, tap_conv_dw=15 * launched, retrieval_ranks=1,
-                      batchnorm_gelu=BN_STEP * launched)
+                      batchnorm_gelu=BN_STEP * launched, glu=GLU_STEP * launched + GLU_FORWARD)
         if (launched != 4 or preempt_launches != want or res_tr.state.step != 40
                 or not np.isfinite(out_r["train_loss"])):
             raise AssertionError(f"preemption launches {preempt_launches} in {launched} launched steps, expected "
@@ -3627,7 +3670,7 @@ def main() -> int:
     # -- 14. summary ---------------------------------------------------------
     paths = {"serve": launches, "train": train_launches, "eval": eval_launches, "fused_train": fused_launches,
              "taps_train": taps_launches, "taps_eval": eval_paths["taps_eval"], "tool": tool_launches,
-             "bn_tool": bn_launches, "trainer": trainer_launches, "trainer_fused": fused_trainer_launches,
+             "bn_tool": bn_launches, "glu_tool": glu_launches, "trainer": trainer_launches, "trainer_fused": fused_trainer_launches,
              "preemption": preempt_launches,
              "checkpoint_serve": serve_ck_launches, **prep_paths, **cli_paths, **dp_paths, **ms_paths, **ma_paths}
 
@@ -3744,6 +3787,27 @@ def main() -> int:
          "without_skip": {k: bn["without_skip"][k] for k in ("ms", "device_ms", "plain_ms", "plain_device_ms")},
          "library": "none: no single PyTorch call computes train-mode BatchNorm then GELU with its backward",
          "timed": "one layer's forward and backward at B=256, T=360, C=320 with the residual input"},
+        {"name": "glu", "route": "cuda",
+         "source": "speech_decoding_tpu_torch/csrc/glu.cu",
+         "header": "speech_decoding_tpu_torch/csrc/tap3.cuh (its sigmoid)",
+         "replaces": "none: the module path's ConvBlock GLU, a * torch.sigmoid(b) with autograd before",
+         "launches": launches_of("glu"),
+         "launches_by_path": {k: p["glu"] for k, p in paths.items()},
+         "max_abs_err": glu_run["check"]["h_max_abs_err"],
+         "backward_max_abs_err": glu_run["check"]["dy_max_abs_err"],
+         "max_over_one_rounding": max(glu_run["check"]["h_over_one_rounding"],
+                                      glu_run["check"]["dy_over_one_rounding"]),
+         "ms": glu_run["op"]["ms"], "plain_ms": glu_run["plain"]["ms"], "bound_ms": glu_run["bound_ms"],
+         "bound_by": glu_run["bound_by"], "library_ms": glu_run["library"]["ms"],
+         "device_ms": glu_run["op"]["device_ms"], "plain_device_ms": glu_run["plain"]["device_ms"],
+         "library_device_ms": glu_run["library"]["device_ms"], "kernel_records": glu_run["op"]["kernel_records"],
+         "plain_kernel_records": glu_run["plain"]["kernel_records"],
+         "library_kernel_records": glu_run["library"]["kernel_records"],
+         "library_max_over_one_rounding": max(glu_run["check"]["library_h_over_one_rounding"],
+                                              glu_run["check"]["library_dy_over_one_rounding"]),
+         "library_bitwise": glu_run["check"]["library_bitwise"],
+         "library": "torch.nn.functional.glu(Y, -1): ATen's glu and glu_backward kernels over the strided halves",
+         "timed": "one block's forward and backward at B=256, T=360, D=320 (Y 640 channels)"},
     ])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

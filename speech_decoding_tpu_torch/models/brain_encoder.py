@@ -31,6 +31,9 @@ across unchanged:
     GSPMD gives JAX's module path on a mesh). On the card, with no group,
     a bf16 block's skip add, train-mode BatchNorm and GELU run as one op,
     ``ops.batchnorm_gelu`` (hand-written kernels, two passes each way);
+  * the ConvBlock's GLU runs as one op, ``ops.glu`` (a hand-written kernel
+    each way), on the card's bf16 activations, in every mode and under any
+    group (it is elementwise); the CPU and f32 keep ``a * torch.sigmoid(b)``;
   * GELU is exact (erf); initializers match torch defaults
     (U(±1/sqrt(fan_in)) for conv weights and biases, U(0, 1) for z), drawn
     from the caller's ``torch.Generator``;
@@ -71,6 +74,7 @@ from torch.nn import functional as Fn
 from torch.utils.checkpoint import checkpoint
 
 from speech_decoding_tpu_torch.ops import batchnorm_gelu as bn_gelu
+from speech_decoding_tpu_torch.ops import glu
 from speech_decoding_tpu_torch.ops.conv_block import dilations
 from speech_decoding_tpu_torch.ops.subject_conv import subject_matmul
 from speech_decoding_tpu_torch.ops.tap_conv import PallasTapConv, tap_conv_dw
@@ -457,8 +461,8 @@ class ConvBlock(nn.Module):
         Y = self.batchnorm0.gelu(self.conv0(X), X if self.k > 0 else None, train, group)
         Y = self.batchnorm1.gelu(self.conv1(Y), Y, train, group)
         Y = self.conv2(Y)
-        a, b = Y.chunk(2, dim=-1)  # GLU over channels [ref: models.py:164]
-        return a * torch.sigmoid(b)
+        # GLU over channels [ref: models.py:164]: one op on the card's bf16 activations
+        return glu.glu(Y) if glu.takes(Y) else glu.glu_plain(Y)
 
 
 class BrainEncoder(nn.Module):

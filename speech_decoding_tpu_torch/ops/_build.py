@@ -164,6 +164,13 @@ def sms(device: torch.device) -> int:
     return sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous on a 16-byte-aligned base (a copy where it is not),
+    as kernels with 16-byte loads read it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 LIBRARIES: Dict[str, "Library"] = {}  # library name -> its Library, as the wrappers register them
 
 

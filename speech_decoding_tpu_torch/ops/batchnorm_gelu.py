@@ -95,12 +95,6 @@ def bn_gelu_train_plain(y, skip, scale, bias, mean, var, eps: float = 1e-5, mome
     return Fn.gelu(normalize(y, m, v, scale, bias, eps, y.dtype), approximate="none")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous on a 16-byte-aligned base (a copy where it is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _check_params(y: torch.Tensor, *params: torch.Tensor) -> None:
     C = y.shape[-1]
     for t in params:
@@ -123,12 +117,12 @@ class _BnGeluTrain(torch.autograd.Function):
     def forward(ctx, a, skip, scale, bias, mean, var, eps, momentum, update):
         B, T, C = a.shape
         dev, rows = a.device, B * T
-        a = _aligned(a)
+        a = _build.aligned(a)
         if skip is not None:
             if skip.shape != a.shape or skip.dtype != a.dtype or skip.device != dev:
                 raise ValueError(f"bn_gelu_train: skip {tuple(skip.shape)} {skip.dtype} does not match "
                                  f"{tuple(a.shape)} {a.dtype}")
-            skip = _aligned(skip)
+            skip = _build.aligned(skip)
         y = a if skip is None else torch.empty_like(a)
         h = torch.empty_like(a)
         st = torch.empty(3, C, dtype=torch.float32, device=dev)
@@ -145,7 +139,7 @@ class _BnGeluTrain(torch.autograd.Function):
         y, st, scale, bias = ctx.saved_tensors
         B, T, C = y.shape
         dev, rows = y.device, B * T
-        dh = _aligned(dh.to(y.dtype))
+        dh = _build.aligned(dh.to(y.dtype))
         dy = torch.empty_like(y)
         dscale, dbias = torch.empty_like(scale), torch.empty_like(bias)
         cst = torch.empty(2, C, dtype=torch.float32, device=dev)

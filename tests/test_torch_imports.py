@@ -62,13 +62,15 @@ def test_kernel_sources_and_config_ship_with_the_package():
     from speech_decoding_tpu_torch.config import load_config
     from speech_decoding_tpu_torch.ops import _build
 
-    # every kernel source names the JAX file of the Pallas kernel it replaces (batchnorm_gelu.cu,
-    # which replaces none, the JAX module it runs in place of and the Pallas kernel of its fused path)
+    # every kernel source names the JAX file of the Pallas kernel it replaces (batchnorm_gelu.cu and
+    # glu.cu, which replace none, the JAX module they run in place of and the Pallas kernel of the
+    # fused path)
     replaces = {"subject_matmul.cu": ["ops/pallas/"], "conv_block.cu": ["ops/pallas/"],
                 "tap_conv_dw.cu": ["ops/pallas/"], "retrieval_ranks.cu": ["ops/pallas/"],
                 "tap_conv.cu": ["ops/pallas/tap_conv.py"],
                 "conv_block_train.cu": ["ops/pallas/", "conv_block_train.py", "tools/bench_cross_block_merge.py"],
                 "batchnorm_gelu.cu": ["models/brain_encoder.py:71", "ops/pallas/conv_block_train.py"],
+                "glu.cu": ["models/brain_encoder.py:481", "ops/pallas/conv_block_train.py"],
                 "tap3.cuh": ["ops/pallas/", "conv_block.py:50", "ops/pallas/tap_conv.py"],
                 "hopper.cuh": ["ops/pallas/tap_conv.py"],
                 "conv_wg.cuh": ["ops/pallas/", "conv_block.py:50", "conv_block_train.py"]}
